@@ -1,0 +1,547 @@
+"""Block-table paged KV cache: refcounted pages + hash-indexed prefix store.
+
+The host classes are the JAX package's (``repro.serve.paged_cache``)
+text: ``PageAllocator`` (refcounted pages, page 0 the null page),
+``PrefixCache`` (page-granular prompt reuse keyed by cumulative
+blake2b digests, copy-on-write for mid-page hits), ``ParkedKV`` /
+``HostPagePool`` (the host swap tier) and the layout sizing through
+``core.analytical``.
+
+The device helpers below work on the port's paged cache (a dict of
+torch tensors from ``models.lm.init_paged_cache``) and update its pools
+IN PLACE, where the JAX versions return a new pytree.
+"""
+from __future__ import annotations
+
+import hashlib
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.analytical import (MemoryBreakdown, PagedCachePlan,
+                                         kv_budget, kv_cache_dtype_bytes,
+                                         page_bytes, plan_paged_cache)
+from repro_torch.core.model_config import ModelSpec
+from repro_torch.models import lm
+from repro_torch.quant.quantize import (lane_major_scales, pack_int4,
+                                        quantize_kv_int4, quantize_kv_int8)
+
+NULL_PAGE = 0
+
+
+class PageAllocator:
+    """Refcounted free-list page allocator.
+
+    Invariants (asserted by ``check``, fuzzed in
+    tests/test_prefix_cache.py): every page except the null page is
+    either free or referenced with refcount >= 1, never both; alloc
+    never hands out the null page or a live page; a page returns to the
+    free list exactly when its refcount hits zero (one ``free`` per
+    outstanding reference); releasing a free page raises.
+    """
+
+    def __init__(self, num_pages: int):
+        if num_pages < 2:
+            raise ValueError("need >= 2 pages (page 0 is reserved)")
+        self.num_pages = num_pages
+        self._free: List[int] = list(range(num_pages - 1, 0, -1))
+        self._ref: Dict[int, int] = {}          # page -> refcount >= 1
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    def can_alloc(self, n: int) -> bool:
+        return n <= len(self._free)
+
+    def refcount(self, page: int) -> int:
+        return self._ref.get(page, 0)
+
+    def alloc(self, n: int) -> List[int]:
+        if not self.can_alloc(n):
+            raise MemoryError(f"paged KV OOM: want {n} pages, "
+                              f"have {len(self._free)}")
+        pages = [self._free.pop() for _ in range(n)]
+        for p in pages:
+            self._ref[p] = 1
+        return pages
+
+    def share(self, pages: Sequence[int]) -> None:
+        """Add one reference to each (already live) page."""
+        for p in pages:
+            if p == NULL_PAGE or p not in self._ref:
+                raise ValueError(f"cannot share free/null page {p}")
+        for p in pages:
+            self._ref[p] += 1
+
+    def free(self, pages: Sequence[int]) -> None:
+        """Release one reference per page; recycle at refcount zero."""
+        for p in pages:
+            if p == NULL_PAGE or p not in self._ref:
+                raise ValueError(f"over-release of page {p}")
+            self._ref[p] -= 1
+            if self._ref[p] == 0:
+                del self._ref[p]
+                self._free.append(p)
+
+    def check(self) -> None:
+        free = set(self._free)
+        live = set(self._ref)
+        assert NULL_PAGE not in free and NULL_PAGE not in live
+        assert all(c >= 1 for c in self._ref.values()), \
+            "zero/negative refcount retained: " + str(self._ref)
+        assert not (free & live), f"pages both free and live: {free & live}"
+        assert len(free) == len(self._free), "duplicate pages in free list"
+        assert free | live == set(range(1, self.num_pages)), \
+            "leaked pages: " + str(set(range(1, self.num_pages)) - free - live)
+
+
+def pages_needed(tokens: int, page_size: int) -> int:
+    return -(-tokens // page_size)
+
+
+def ring_window(spec: ModelSpec, windowed_kv: Optional[bool] = None) -> int:
+    """The sliding window the paged pool may RING-evict against, or 0.
+
+    Ring eviction frees a slot's pages once they fall fully behind
+    ``spec.sliding_window``, so it is only sound when EVERY KV-holding
+    layer is windowed (``attn_local``): one block table is shared by
+    all layers, and a single global-attention layer needs the full
+    context.  ``windowed_kv=None`` auto-detects; ``False`` forces the
+    mask-only (no-evict) reference behaviour — windowed attention math
+    with full-attention memory; ``True`` asserts the stack qualifies
+    (raises otherwise, rather than silently corrupting global layers).
+    """
+    if windowed_kv is False:
+        return 0
+    w = int(getattr(spec, "sliding_window", 0) or 0)
+    kinds = list(spec.layer_kinds())
+    uniform = w > 0 and kinds and all(k == "attn_local" for k in kinds)
+    if windowed_kv and not uniform:
+        raise ValueError(
+            f"windowed_kv=True but {spec.name} is not a uniformly "
+            f"sliding-window stack (kinds: {sorted(set(kinds))}, "
+            f"window={w})")
+    return w if uniform else 0
+
+
+def ring_pages(window: int, page_size: int, spec_k: int = 1) -> int:
+    """Ring block-table capacity in pages: enough to cover ``window``
+    keys for the EARLIEST of ``spec_k`` speculative queries (span
+    ``window + spec_k - 1`` tokens) plus one straddle page — the
+    per-slot KV bound that holds for unbounded streams.  The +1 also
+    guarantees a spec-k rollback landing before the ring's write head
+    never re-enters an already-recycled page."""
+    if window <= 0:
+        raise ValueError("ring_pages needs window > 0")
+    span = window + max(spec_k, 1) - 1
+    return pages_needed(span, page_size) + 1
+
+
+# ---------------------------------------------------------------------------
+# Prefix store
+# ---------------------------------------------------------------------------
+
+@dataclass
+class PrefixEntry:
+    page: int
+    n_tokens: int                   # valid KV rows in the page
+
+
+@dataclass
+class PrefixMatch:
+    """Result of a prompt lookup against the prefix store.
+
+    ``full_pages`` are whole cached pages the request can share
+    read-only; ``partial`` (page, n_tokens) is an optional cached chunk
+    that ends mid-page and must be copy-on-write'd because the sharer
+    will append into it.  ``tokens`` counts every matched prompt token
+    (full + partial) — always <= len(prompt) - 1 so at least one token
+    remains to prefill (its logits seed sampling).
+    """
+    full_pages: List[int]
+    partial: Optional[Tuple[int, int]]
+    tokens: int
+
+
+class PrefixCache:
+    """Hash-indexed, LRU-evicted store of read-only prompt pages.
+
+    Keys are (prefix_length, blake2b-128(prefix token bytes)) — the
+    cumulative digest of EVERY token up to the chunk's end, so a hit
+    guarantees (to 128-bit collision odds, keyed by exact length) that
+    the whole prefix matches; entries store no token bytes, keeping the
+    host side O(1) per page, and ``lookup`` streams the prompt through
+    ONE incremental hasher so the page walk costs O(page) per probe
+    rather than re-hashing the prefix from scratch.  Each entry pins
+    its page with one allocator reference, so pages survive their
+    original request and are reclaimed only by ``evict`` (and only once
+    no live request shares them).  Content written by a page's original
+    owner at offsets >= ``n_tokens`` (its own decode tokens) is
+    harmless: full pages are immutable, and partial entries are
+    consumed via copy-on-write where the sharer overwrites everything
+    past ``n_tokens`` before reading it.
+    """
+
+    def __init__(self, alloc: PageAllocator, page_size: int):
+        self.alloc = alloc
+        self.page_size = page_size
+        self._entries: "OrderedDict[Tuple[int, bytes], PrefixEntry]" = \
+            OrderedDict()
+        self.hits = 0
+        self.misses = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    @staticmethod
+    def _digest(prefix: np.ndarray) -> bytes:
+        return hashlib.blake2b(
+            np.ascontiguousarray(prefix, np.int32).tobytes(),
+            digest_size=16).digest()
+
+    def _get(self, key: Tuple[int, bytes]) -> Optional[PrefixEntry]:
+        ent = self._entries.get(key)
+        if ent is not None:
+            self._entries.move_to_end(key)    # LRU touch
+        return ent
+
+    def lookup(self, prompt: np.ndarray) -> PrefixMatch:
+        """Longest cached prefix of ``prompt``, capped at len(prompt)-1."""
+        page = self.page_size
+        plen = len(prompt)
+        buf = np.ascontiguousarray(prompt, np.int32).tobytes()
+        h = hashlib.blake2b(digest_size=16)
+        full: List[int] = []
+        while (len(full) + 1) * page <= plen - 1:
+            hn = h.copy()
+            hn.update(buf[len(full) * page * 4:(len(full) + 1) * page * 4])
+            ent = self._get(((len(full) + 1) * page, hn.digest()))
+            if ent is None:
+                break
+            h = hn
+            full.append(ent.page)
+        matched = len(full) * page
+        partial: Optional[Tuple[int, int]] = None
+        # longest mid-page chunk extending the full match (CoW path):
+        # extend the clean hasher one token at a time, probe longest-first
+        cands: List[Tuple[int, bytes]] = []
+        for t in range(1, min(page - 1, plen - 1 - matched) + 1):
+            h.update(buf[(matched + t - 1) * 4:(matched + t) * 4])
+            cands.append((t, h.digest()))
+        for t, d in reversed(cands):
+            ent = self._get((matched + t, d))
+            if ent is not None:
+                partial = (ent.page, t)
+                matched += t
+                break
+        if matched:
+            self.hits += 1
+        else:
+            self.misses += 1
+        return PrefixMatch(full, partial, matched)
+
+    def _insert_key(self, key: Tuple[int, bytes], page: int,
+                    n_tokens: int) -> bool:
+        if key in self._entries:
+            return False
+        self.alloc.share([page])
+        self._entries[key] = PrefixEntry(page, n_tokens)
+        return True
+
+    def insert(self, prefix: np.ndarray, page: int, n_tokens: int) -> bool:
+        """Register ``page`` as holding the KV of ``prefix`` (whose last
+        ``n_tokens`` tokens live in this page).  Takes one allocator
+        reference; no-op if the key is already present."""
+        return self._insert_key((len(prefix), self._digest(prefix)),
+                                page, n_tokens)
+
+    def register_prompt(self, prompt: np.ndarray, pages: Sequence[int]) -> int:
+        """Register every chunk of an admitted prompt (full pages plus
+        the mid-page tail) in one pass, streaming a single incremental
+        hasher instead of re-digesting the prefix per entry.  Chunks
+        whose key already exists (prior hits, concurrent twins) no-op.
+        Returns the number of new entries."""
+        page = self.page_size
+        plen = len(prompt)
+        buf = np.ascontiguousarray(prompt, np.int32).tobytes()
+        h = hashlib.blake2b(digest_size=16)
+        new = 0
+        for pi in range(plen // page):
+            h.update(buf[pi * page * 4:(pi + 1) * page * 4])
+            new += self._insert_key(((pi + 1) * page, h.digest()),
+                                    pages[pi], page)
+        tail = plen % page
+        if tail:
+            h.update(buf[(plen - tail) * 4:])
+            new += self._insert_key((plen, h.digest()), pages[-1], tail)
+        return new
+
+    def evict(self, n_pages: int) -> int:
+        """Drop LRU entries until ``n_pages`` pages return to the free
+        list.  Entries whose page a live request still shares
+        (refcount > 1) are SKIPPED and kept: dropping them would lose
+        the cache without freeing anything — the page only becomes
+        reclaimable once its sharers finish."""
+        freed = 0
+        for key in list(self._entries):
+            if freed >= n_pages:
+                break
+            ent = self._entries[key]
+            if self.alloc.refcount(ent.page) > 1:
+                continue
+            del self._entries[key]
+            self.alloc.free([ent.page])
+            freed += 1
+        return freed
+
+    def flush(self) -> None:
+        """Release every cached page reference (tests / shutdown)."""
+        for ent in self._entries.values():
+            self.alloc.free([ent.page])
+        self._entries.clear()
+
+
+# ---------------------------------------------------------------------------
+# Host memory tier: parked KV
+# ---------------------------------------------------------------------------
+
+@dataclass
+class ParkedKV:
+    """A slot's KV parked in host DRAM (the swap tier).
+
+    ``blob`` is a host pytree of per-page rows gathered from every pool
+    entry (k/v pages plus lane-major scale pages for quantized dtypes)
+    — ``n_pages`` leading rows per leaf, byte-identical to the device
+    pages at swap-out time, so scattering it back is a lossless resume.
+    ``context`` holds the token ids the parked KV covers (prompt plus
+    generated so far); ``written`` counts the KV rows actually written
+    (``len(context) - 1`` — the last token's KV is recomputed by the
+    one-token suffix prefill that rejoins the slot, which also restores
+    the block-table row and pos through the existing admission path).
+    Pages whose refcount was > 1 at swap-out (shared prefix pages) are
+    COPIED into the blob, never stolen: the other holders keep the
+    device page; the parked slot resumes into fresh pages.
+
+    For RING slots (windowed KV) the page rows are gathered in ENTRY
+    order — rejoining scatters them back at the same ring entries, so
+    the entry -> absolute-page mapping (a pure function of the restored
+    length) is preserved; ``abs_pages`` records how many absolute pages
+    the stream had ever covered (>= ``n_pages`` once wrapped).
+    """
+    context: np.ndarray
+    written: int
+    n_pages: int
+    blob: object
+    nbytes: int
+    abs_pages: Optional[int] = None
+
+
+def _blob_leaves(blob):
+    if isinstance(blob, dict):
+        for v in blob.values():
+            yield from _blob_leaves(v)
+    elif isinstance(blob, (list, tuple)):
+        for v in blob:
+            yield from _blob_leaves(v)
+    else:
+        yield blob
+
+
+def blob_nbytes(blob) -> int:
+    """Host bytes of a gathered page blob (sum over its numpy leaves)."""
+    return sum(int(a.nbytes) for a in _blob_leaves(blob))
+
+
+class HostPagePool:
+    """Byte-budgeted store of ``ParkedKV`` records keyed by the
+    scheduler (uid for swapped-out victims, session id for idle parks).
+
+    Pure host bookkeeping: the pool holds numpy copies of page rows and
+    an exact byte count against ``capacity_bytes`` — it never touches
+    the device allocator, so device pages freed at swap-out are
+    immediately reusable.  ``check()`` asserts the accounting invariants
+    (tier-1 audit mode runs it after every scheduler iteration).
+    """
+
+    def __init__(self, capacity_bytes: float):
+        if capacity_bytes <= 0:
+            raise ValueError("host pool capacity must be > 0 bytes")
+        self.capacity_bytes = float(capacity_bytes)
+        self._records: "OrderedDict[object, ParkedKV]" = OrderedDict()
+        self.used_bytes = 0
+        self.parked_total = 0
+        self.resumed_total = 0
+
+    def __len__(self) -> int:
+        return len(self._records)
+
+    def __contains__(self, key) -> bool:
+        return key in self._records
+
+    @property
+    def free_bytes(self) -> float:
+        return self.capacity_bytes - self.used_bytes
+
+    def can_park(self, nbytes: float) -> bool:
+        return nbytes <= self.free_bytes
+
+    def park(self, key, rec: ParkedKV) -> None:
+        if key in self._records:
+            raise ValueError(f"key already parked: {key!r}")
+        if rec.nbytes > self.free_bytes:
+            raise MemoryError(
+                f"host pool full: want {rec.nbytes} B, "
+                f"have {self.free_bytes:.0f} B of {self.capacity_bytes:.0f}")
+        self._records[key] = rec
+        self.used_bytes += rec.nbytes
+        self.parked_total += 1
+
+    def peek(self, key) -> Optional[ParkedKV]:
+        return self._records.get(key)
+
+    def take(self, key) -> ParkedKV:
+        """Remove and return a record (swap-in consumes it)."""
+        rec = self._records.pop(key)
+        self.used_bytes -= rec.nbytes
+        self.resumed_total += 1
+        return rec
+
+    def drop(self, key) -> bool:
+        """Discard a record without resuming it (session ended, request
+        shed, or the work migrated to another replica)."""
+        rec = self._records.pop(key, None)
+        if rec is None:
+            return False
+        self.used_bytes -= rec.nbytes
+        return True
+
+    def check(self) -> None:
+        total = sum(r.nbytes for r in self._records.values())
+        assert self.used_bytes == total, \
+            f"host pool byte leak: tracked {self.used_bytes} != sum {total}"
+        assert self.used_bytes <= self.capacity_bytes, "host pool over budget"
+        for key, rec in self._records.items():
+            assert rec.n_pages >= 1, f"empty parked record: {key!r}"
+            assert rec.nbytes == blob_nbytes(rec.blob), \
+                f"stale nbytes on parked record {key!r}"
+            assert 1 <= rec.written < len(rec.context), \
+                f"parked record {key!r} written={rec.written} out of range"
+
+
+# ---------------------------------------------------------------------------
+# Layout sizing
+# ---------------------------------------------------------------------------
+
+def make_layout(spec: ModelSpec, *, max_seq: int, page_size: int = 16,
+                num_pages: Optional[int] = None,
+                kv_budget_bytes: Optional[float] = None,
+                device_bytes: Optional[float] = None,
+                mem: Optional[MemoryBreakdown] = None,
+                cache_dtype: str = "fp32",
+                max_slots: Optional[int] = None,
+                tp: int = 1, window: int = 0,
+                spec_k: int = 1) -> lm.PagedLayout:
+    """Size the page pool: explicit ``num_pages``, a raw byte budget, or
+    a ``MemoryBreakdown`` + device size (budget = what weights and
+    activations leave free, eq. (9)'s residual term).  Byte budgets are
+    PER DEVICE: with ``tp`` > 1 (tensor-parallel sharded backend) each
+    device stores only its KV-head slice of every page, so the same
+    per-device budget addresses ~tp x more logical pages — the
+    edge-cluster capacity story ``core.analytical.plan_paged_cache``
+    prices.  With ``max_slots`` the pool is capped at the addressable
+    maximum (every slot full plus the null page) — a bigger pool is
+    pure scatter/donation overhead.
+
+    ``window > 0`` sizes block-table rows as RINGS of
+    ``ring_pages(window, page_size, spec_k)`` entries instead of
+    ``max_seq // page_size`` — per-slot KV is O(window) regardless of
+    context length, so the same pool bytes admit proportionally more
+    slots (and the ``max_slots`` cap shrinks to the ring bound)."""
+    pps = pages_needed(max_seq, page_size)
+    if window:
+        pps = min(pps, ring_pages(window, page_size, spec_k))
+    if num_pages is None:
+        if kv_budget_bytes is None:
+            if device_bytes is None or mem is None:
+                raise ValueError("need num_pages, kv_budget_bytes, or "
+                                 "device_bytes + mem")
+            kv_budget_bytes = kv_budget(device_bytes, mem)
+        bytes_per, scales = kv_cache_dtype_bytes(cache_dtype)
+        plan = plan_paged_cache(
+            spec, kv_budget_bytes, page_size=page_size,
+            bytes_per=bytes_per, quantized_scales=scales, tp=tp)
+        num_pages = plan.num_pages
+    if max_slots is not None:
+        num_pages = min(num_pages, max_slots * pps + 1)
+    return lm.PagedLayout(num_pages=num_pages, page_size=page_size,
+                          pages_per_slot=pps)
+
+
+def plan_for_layout(spec: ModelSpec, layout: lm.PagedLayout,
+                    cache_dtype: str = "fp32", tp: int = 1) -> PagedCachePlan:
+    """The analytical plan matching an instantiated layout (for the
+    profiler's throughput prediction) — byte terms follow the cache
+    dtype (0.5 B/value + f32 scales for int4); ``tp`` > 1 makes them
+    the per-device share of a KV-head-sharded pool."""
+    from repro_torch.core.analytical import tp_shards_kv
+    bytes_per, scales = kv_cache_dtype_bytes(cache_dtype)
+    pb = page_bytes(spec, layout.page_size,
+                    bytes_per=bytes_per, quantized_scales=scales, tp=tp)
+    return PagedCachePlan(page_size=layout.page_size,
+                          num_pages=layout.num_pages,
+                          page_bytes=pb,
+                          bytes_per_token=pb / layout.page_size,
+                          tp=tp if tp_shards_kv(spec, tp) else 1)
+
+
+# ---------------------------------------------------------------------------
+# Device-side page plumbing (in place)
+# ---------------------------------------------------------------------------
+
+def scatter_prompt_pages(cache_groups, prefill_groups, pv: torch.Tensor,
+                         page: int) -> None:
+    """Scatter the first ``len(pv)`` pages of KV rows from a contiguous
+    (single-sequence) prefill cache into the page pools, in place.
+    Quantized pools quantize rows and fill the scale pools alongside;
+    int4 additionally nibble-packs token pairs (whole pages are written,
+    so no read-modify-write is needed here)."""
+    n = pv.shape[0]
+    pv = pv.long()
+    for cg, pg in zip(cache_groups, prefill_groups):
+        for entry, src in zip(cg, pg):
+            quant = lm._paged_quant(entry)
+            for name in ("k", "v"):
+                rows = src[name][0, :n * page]           # (n*page, KV, D)
+                rows = rows.reshape(n, page, *rows.shape[1:])
+                pool = entry[name + "_pages"]
+                if quant == "int8":
+                    qrows, srows = quantize_kv_int8(rows)
+                    pool[pv] = qrows
+                    entry[name + "_scale"][pv] = lane_major_scales(srows)
+                elif quant == "int4":
+                    qrows, srows = quantize_kv_int4(rows)
+                    pool[pv] = pack_int4(qrows, axis=1)
+                    entry[name + "_scale"][pv] = lane_major_scales(srows)
+                else:
+                    pool[pv] = rows.to(pool.dtype)
+
+
+def copy_page(cache, src_page: int, dst_page: int) -> None:
+    """Copy one physical page (all layers, k/v and scales) in place — the
+    copy-on-write step when a request reuses a cached prefix that ends
+    mid-page and must append into its own private copy."""
+    for cg in cache["groups"]:
+        for entry in cg:
+            for pool in entry.values():
+                pool[dst_page] = pool[src_page]
+
+
+def release_slot(cache, slot: int) -> None:
+    """Reset a finished slot's block table/pos to the null page in place
+    (device side only — the allocator frees the physical pages)."""
+    cache["pos"][slot] = 0
+    cache["block_tables"][slot] = NULL_PAGE
