@@ -1,30 +1,44 @@
-// Paged decode attention for Hopper (sm_90a): one query token per slot
-// against a block-table page pool, online softmax in f32.
+// Paged decode attention for Hopper (sm_90a): a K-token decode window per
+// slot (K = 1 for an ordinary decode step, K > 1 for the speculative
+// verify window) against a block-table page pool, online softmax in f32.
 //
-// Replaces the TPU kernel src/repro/kernels/paged_attention.py:_paged_kernel
-// (with its helpers _dequant_page, _unpack_nibbles and _page_tokens).
+// Replaces the TPU kernels src/repro/kernels/paged_attention.py:_paged_kernel
+// and _paged_window_kernel (with their helpers _dequant_page,
+// _unpack_nibbles and _page_tokens): the single-query kernel is this one
+// at K = 1.
+//
+// q (B, K, H, D): query j of slot b sits at absolute position
+// len - K + j (len counts the context including the whole window, whose
+// K/V rows are already in the pool) and attends the keys at positions
+// <= len - K + j, within `window` of it when window > 0.
 //
 // What bounds it on this card: the bytes of the KV pages it must read.
 // Each (slot, KV head) reads only the pages holding a key its mask can
-// accept (ceil(len/page) pages for full attention, the pages that
-// overlap the window otherwise), at 4, 1 or 1/2 byte per value plus the
-// f32 scales of quantized pools; q and the output are tiny beside them.
-// The arithmetic (2*G*D flops per key per query head) is far below what
-// would make it compute-bound.
+// accept, at 4, 1 or 1/2 byte per value plus the f32 scales of quantized
+// pools, ONCE for all K queries -- the K-way amortization the TPU window
+// kernel exists for; q and the output are tiny beside them.  The
+// arithmetic (2*G*D flops per key per query row) is far below what would
+// make it compute-bound.
 //
-// Design: one block per (KV head, slot) computes all G = H/KV query
-// heads of its group, so every page row crosses device memory once for
-// the whole group (the GQA fold of the TPU kernel).  The block walks its
-// block-table entries in a loop -- the TPU's sequential page grid axis --
-// dequantizing each page's K/V rows for its head into shared memory
-// (int8 times the per-token scale, int4 as sign-extended nibbles with
-// the low nibble the even token), then scores, online-softmax update and
-// the P.V accumulation all stay on chip.  Pages that hold no valid key
-// are not visited at all: on the TPU they were streamed and masked,
-// which adds exactly nothing to m, l and acc, so skipping them changes
-// no result.  A slot of length 0 writes zeros.  Simple first: no
-// cp.async/TMA pipelining and no split over pages yet, so a batch of B
-// slots runs B*KV blocks.
+// Design: one block per (KV head, slot) holds all R = K*G query rows of
+// its group (row r = j*G + g, G = H/KV), so every page row crosses device
+// memory once for the whole group and window (the GQA fold of the TPU
+// kernel).  Per-row online-softmax state (m, l, acc) stays in shared
+// memory.  The block walks its block-table entries in a loop -- the
+// TPU's sequential page grid axis -- dequantizing each page's K/V rows
+// for its head into shared memory (int8 times the per-token scale, int4
+// as sign-extended nibbles with the low nibble the even token), then
+// scores, online-softmax update and the P.V accumulation all stay on
+// chip.  It visits only entries holding a key valid for ANY of the K
+// queries: from the first key in query 0's window to the last written
+// token, a span of window + K - 1 tokens, as in the TPU kernel's skip
+// mode.  On the TPU the other pages were streamed and masked, which adds
+// exactly nothing to m, l and acc, so skipping them changes no result.
+// The flat walk is clamped to the table's n entries: tokens past n*page
+// are never read (nor is block_tables[b, n]).  Rows with no valid key (a
+// slot of length 0, or a query before position 0) write zeros.  Simple
+// first: no cp.async/TMA pipelining and no split over pages yet, so a
+// batch of B slots runs B*KV blocks.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -32,11 +46,11 @@
 
 enum { QUANT_NONE = 0, QUANT_INT8 = 1, QUANT_INT4 = 2 };
 
-__device__ __forceinline__ bool tok_valid(int tok, int len, int window,
+__device__ __forceinline__ bool key_valid(int tok, int qpos, int window,
                                           int ring) {
-  bool v = tok < len;
+  bool v = tok <= qpos;
   if (ring) v = v && tok >= 0;
-  if (window > 0) v = v && tok > len - 1 - window;
+  if (window > 0) v = v && qpos - tok < window;
   return v;
 }
 
@@ -73,16 +87,22 @@ __device__ __forceinline__ float load_kv(const void* __restrict__ pages,
   return (float)nib * s;
 }
 
-template <int QUANT>
-__global__ void paged_decode_kernel(
+// WIN = false is the single-query case, K = 1 known at compile time: it
+// drops the row-to-query division r / G from the score loop, which cost
+// 5-17 % of the K = 1 kernel's time on the H100.
+template <int QUANT, bool WIN>
+__global__ void paged_attention_kernel(
     const float* __restrict__ q, const void* __restrict__ k_pages,
     const void* __restrict__ v_pages, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const int* __restrict__ block_tables,
     const int* __restrict__ lengths, float* __restrict__ out, int H, int KV,
-    int D, int page, int n_entries, int window, int ring, float scale) {
+    int D, int page, int n_entries, int wq, int window, int ring,
+    float scale) {
+  const int WQ = WIN ? wq : 1;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int G = H / KV;
+  const int R = WQ * G;  // query rows of this block
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
   const int lane = tid & 31;
@@ -91,37 +111,37 @@ __global__ void paged_decode_kernel(
   const int KD = D + 1;  // padded K row: conflict-free score reads
 
   extern __shared__ float smem[];
-  float* qs = smem;               // G*D    scaled queries
-  float* ks = qs + G * D;         // page*KD
+  float* qs = smem;               // R*D    scaled queries
+  float* ks = qs + R * D;         // page*KD
   float* vs = ks + page * KD;     // page*D
-  float* ps = vs + page * D;      // G*page scores, then probabilities
-  float* acc = ps + G * page;     // G*D
-  float* m_run = acc + G * D;     // G
-  float* l_run = m_run + G;       // G
-  float* alpha = l_run + G;       // G
+  float* ps = vs + page * D;      // R*page scores, then probabilities
+  float* acc = ps + R * page;     // R*D
+  float* m_run = acc + R * D;     // R
+  float* l_run = m_run + R;       // R
+  float* alpha = l_run + R;       // R
 
   const int len = lengths[b];
-  for (int i = tid; i < G * D; i += nthr) {
-    qs[i] = q[((size_t)b * H + h * G) * D + i] * scale;
+  const int base = len - WQ;  // absolute position of query 0
+  // row r = j*G + g  <->  q[b, j, h*G + g, :]
+  for (int i = tid; i < R * D; i += nthr) {
+    const int r = i / D, d = i - r * D;
+    const int j = WIN ? r / G : 0, g = r - j * G;
+    qs[i] = q[(((size_t)b * WQ + j) * H + h * G + g) * D + d] * scale;
     acc[i] = 0.f;
   }
-  for (int g = tid; g < G; g += nthr) {
-    m_run[g] = NEG_INF;
-    l_run[g] = 0.f;
+  for (int r = tid; r < R; r += nthr) {
+    m_run[r] = NEG_INF;
+    l_run[r] = 0.f;
   }
 
-  // Entries to visit.  Flat tables: entry e holds absolute page e; only
-  // pages [first, last] can hold a valid key.  Ring tables: entry j holds
-  // absolute page last - ((last - j) mod R); every entry is a candidate.
   const int last = len > 0 ? (len - 1) / page : 0;
-  const int lo_valid = window > 0 ? len - window : 0;  // first valid key
+  const int lo_valid = window > 0 ? base - window + 1 : 0;  // query 0's first key
   int e_begin = 0, e_end = 0;
   if (len > 0) {
     if (ring) {
       e_end = n_entries;
     } else {
-      int first_tok = window > 0 ? max(len - window, 0) : 0;
-      e_begin = first_tok / page;
+      e_begin = max(lo_valid, 0) / page;
       e_end = min(last, n_entries - 1) + 1;
     }
   }
@@ -134,7 +154,6 @@ __global__ void paged_decode_kernel(
       if (r < 0) r += n_entries;
       ap = last - r;
     }
-    // skip entries with no valid key (never written, or out of window)
     const int t0 = ap * page;
     if (ap < 0 || t0 > len - 1 || t0 + page - 1 < lo_valid) continue;
     const int pg = bt[e];
@@ -146,54 +165,58 @@ __global__ void paged_decode_kernel(
       vs[i] = load_kv<QUANT>(v_pages, v_scale, pg, t, h, d, KV, D, page);
     }
     __syncthreads();
-    for (int i = tid; i < G * page; i += nthr) {
-      int g = i / page, t = i - g * page;
+    for (int i = tid; i < R * page; i += nthr) {
+      const int r = i / page, t = i - r * page;
       float s = NEG_INF;
-      if (tok_valid(t0 + t, len, window, ring)) {
-        const float* qg = qs + g * D;
+      if (key_valid(t0 + t, base + (WIN ? r / G : 0), window, ring)) {
+        const float* qr = qs + r * D;
         const float* kt = ks + t * KD;
         float a = 0.f;
-        for (int d = 0; d < D; ++d) a = fmaf(qg[d], kt[d], a);
+        for (int d = 0; d < D; ++d) a = fmaf(qr[d], kt[d], a);
         s = a;
       }
       ps[i] = s;
     }
     __syncthreads();
-    for (int g = warp; g < G; g += nwarps) {
+    for (int r = warp; r < R; r += nwarps) {
+      const int qpos = base + (WIN ? r / G : 0);
       float mx = NEG_INF;
-      for (int t = lane; t < page; t += 32) mx = fmaxf(mx, ps[g * page + t]);
+      for (int t = lane; t < page; t += 32) mx = fmaxf(mx, ps[r * page + t]);
       mx = warp_max(mx);
-      const float m_prev = m_run[g];
+      const float m_prev = m_run[r];
       const float m_new = fmaxf(m_prev, mx);
       float sum = 0.f;
       for (int t = lane; t < page; t += 32) {
-        float ev = tok_valid(t0 + t, len, window, ring)
-                       ? expf(ps[g * page + t] - m_new)
+        float ev = key_valid(t0 + t, qpos, window, ring)
+                       ? expf(ps[r * page + t] - m_new)
                        : 0.f;
-        ps[g * page + t] = ev;
+        ps[r * page + t] = ev;
         sum += ev;
       }
       sum = warp_sum(sum);
       if (lane == 0) {
         const float a = expf(m_prev - m_new);
-        alpha[g] = a;
-        l_run[g] = a * l_run[g] + sum;
-        m_run[g] = m_new;
+        alpha[r] = a;
+        l_run[r] = a * l_run[r] + sum;
+        m_run[r] = m_new;
       }
     }
     __syncthreads();
-    for (int i = tid; i < G * D; i += nthr) {
-      int g = i / D, d = i - g * D;
-      const float* pg_ = ps + g * page;
+    for (int i = tid; i < R * D; i += nthr) {
+      const int r = i / D, d = i - r * D;
+      const float* pr = ps + r * page;
       float pv = 0.f;
-      for (int t = 0; t < page; ++t) pv = fmaf(pg_[t], vs[t * D + d], pv);
-      acc[i] = acc[i] * alpha[g] + pv;
+      for (int t = 0; t < page; ++t) pv = fmaf(pr[t], vs[t * D + d], pv);
+      acc[i] = acc[i] * alpha[r] + pv;
     }
   }
   __syncthreads();
-  for (int i = tid; i < G * D; i += nthr) {
-    const float l = l_run[i / D];
-    out[((size_t)b * H + h * G) * D + i] = acc[i] / (l == 0.f ? 1.f : l);
+  for (int i = tid; i < R * D; i += nthr) {
+    const int r = i / D, d = i - r * D;
+    const int j = WIN ? r / G : 0, g = r - j * G;
+    const float l = l_run[r];
+    out[(((size_t)b * WQ + j) * H + h * G + g) * D + d] =
+        acc[i] / (l == 0.f ? 1.f : l);
   }
 }
 
@@ -202,31 +225,34 @@ static cudaError_t launch(const float* q, const void* k_pages,
                           const void* v_pages, const float* k_scale,
                           const float* v_scale, const int* block_tables,
                           const int* lengths, float* out, int B, int H, int KV,
-                          int D, int page, int n_entries, int window, int ring,
-                          float scale, cudaStream_t stream) {
-  const int G = H / KV;
+                          int D, int page, int n_entries, int WQ, int window,
+                          int ring, float scale, cudaStream_t stream) {
+  const size_t R = (size_t)WQ * (H / KV);
   const size_t smem =
-      sizeof(float) *
-      ((size_t)G * D + (size_t)page * (D + 1) + (size_t)page * D +
-       (size_t)G * page + (size_t)G * D + 3 * (size_t)G);
+      sizeof(float) * (R * D + (size_t)page * (D + 1) + (size_t)page * D +
+                       R * page + R * D + 3 * R);
+  auto kernel = WQ > 1 ? paged_attention_kernel<QUANT, true>
+                        : paged_attention_kernel<QUANT, false>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_kernel<QUANT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
+  // About one thread per score of a page (R*page), between 4 and 8 warps:
+  // 128 threads for a single query at G = 8, page 16; 256 for a window.
+  const int threads = R * page > 128 ? 256 : 128;
   dim3 grid(KV, B);
-  paged_decode_kernel<QUANT><<<grid, 128, smem, stream>>>(
+  kernel<<<grid, threads, smem, stream>>>(
       q, k_pages, v_pages, k_scale, v_scale, block_tables, lengths, out, H, KV,
-      D, page, n_entries, window, ring, scale);
+      D, page, n_entries, WQ, window, ring, scale);
   return cudaGetLastError();
 }
 
-extern "C" int paged_attention_decode(
+extern "C" int paged_attention(
     const float* q, const void* k_pages, const void* v_pages,
     const float* k_scale, const float* v_scale, const int* block_tables,
     const int* lengths, float* out, int B, int H, int KV, int D, int page,
-    int n_entries, int quant, int window, int ring, float scale,
+    int n_entries, int quant, int WQ, int window, int ring, float scale,
     void* stream) {
   if (B == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -235,17 +261,17 @@ extern "C" int paged_attention_decode(
     case QUANT_NONE:
       err = launch<QUANT_NONE>(q, k_pages, v_pages, k_scale, v_scale,
                                block_tables, lengths, out, B, H, KV, D, page,
-                               n_entries, window, ring, scale, s);
+                               n_entries, WQ, window, ring, scale, s);
       break;
     case QUANT_INT8:
       err = launch<QUANT_INT8>(q, k_pages, v_pages, k_scale, v_scale,
                                block_tables, lengths, out, B, H, KV, D, page,
-                               n_entries, window, ring, scale, s);
+                               n_entries, WQ, window, ring, scale, s);
       break;
     case QUANT_INT4:
       err = launch<QUANT_INT4>(q, k_pages, v_pages, k_scale, v_scale,
                                block_tables, lengths, out, B, H, KV, D, page,
-                               n_entries, window, ring, scale, s);
+                               n_entries, WQ, window, ring, scale, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;

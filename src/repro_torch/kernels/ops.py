@@ -10,6 +10,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import quant_matmul as _qmm
 from repro_torch.quant.qtypes import QuantizedTensor
@@ -27,12 +28,27 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
                     window: int = 0, ring: bool = False,
                     scale: Optional[float] = None, k_scale=None,
                     v_scale=None, impl: str = "auto") -> torch.Tensor:
-    """Paged decode attention, q (B, H, D) -> (B, H, D); see
+    """Paged decode attention, q (B, H, D) -> (B, H, D), or a K-token
+    verify window q (B, K, H, D) -> (B, K, H, D); see
     ``kernels.paged_attention``."""
-    fn = (_pa.paged_attention_plain if _use_plain(q, impl)
-          else _pa.paged_attention_cuda)
+    if _use_plain(q, impl):
+        fn = _pa.paged_attention_plain
+    elif q.ndim == 4:
+        fn = _pa.paged_attention_window_cuda
+    else:
+        fn = _pa.paged_attention_cuda
     return fn(q, k_pages, v_pages, block_tables, lengths, window=window,
               ring=ring, scale=scale, k_scale=k_scale, v_scale=v_scale)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None,
+                    impl: str = "auto") -> torch.Tensor:
+    """Prompt attention, q (B, Sq, H, D) against k/v (B, Sk, KV, D) ->
+    (B, Sq, H, D); see ``kernels.flash_attention``."""
+    fn = (_fa.flash_attention_plain if _use_plain(q, impl)
+          else _fa.flash_attention_cuda)
+    return fn(q, k, v, causal=causal, window=window, scale=scale)
 
 
 def _weight_operands(w: QuantizedTensor):
@@ -68,9 +84,14 @@ def quant_matmul(x: torch.Tensor, w: QuantizedTensor, *,
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, by kernel."""
-    return {"paged_attention": _pa.LAUNCHES, "quant_matmul": _qmm.LAUNCHES}
+    return {"paged_attention": _pa.LAUNCHES,
+            "paged_window": _pa.WINDOW_LAUNCHES,
+            "quant_matmul": _qmm.LAUNCHES,
+            "flash_attention": _fa.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     _pa.LAUNCHES = 0
+    _pa.WINDOW_LAUNCHES = 0
     _qmm.LAUNCHES = 0
+    _fa.LAUNCHES = 0

@@ -1,8 +1,9 @@
 """Paged decode attention: the hand-written CUDA kernel
 (``csrc/paged_attention.cu``) and its plain PyTorch version.
 
-One query token per slot, q (B, H, D), against page pools shared through
-per-slot block tables:
+One query token per slot, q (B, H, D), or a K-token decode window per
+slot, q (B, K, H, D) (the speculative verify step), against page pools
+shared through per-slot block tables:
 
 * fp32 pools (P, page, KV, D);
 * int8 pools (P, page, KV, D) with per-token f32 scales (P, KV, page);
@@ -10,14 +11,20 @@ per-slot block tables:
   even token, with the same scales.
 
 GQA folds H = KV * G query heads onto KV heads; ``lengths`` counts each
-slot's valid context (the current token's K/V already written) and a
-slot of length 0 returns zeros.  ``window > 0`` keeps only keys with
-``tok > length - 1 - window``; ``ring=True`` declares each block-table
-row a ring of R entries (entry j holds absolute page
-``last - ((last - j) mod R)``, never-written entries masked).
+slot's valid context including the query tokens' own K/V (already
+written), and a slot of length 0 returns zeros.  Query j of a K-token
+window sits at absolute position ``length - K + j`` and attends the
+keys at positions ``<= length - K + j`` (a single query is the case
+K = 1).  ``window > 0`` also requires ``query position - tok < window``;
+``ring=True`` declares each block-table row a ring of R entries (entry
+j holds absolute page ``last - ((last - j) mod R)``, never-written
+entries masked).
 
-The kernel replaces ``repro/kernels/paged_attention.py:_paged_kernel``;
-the plain version is the gather oracle of ``repro/kernels/ref.py``.
+The kernel replaces ``repro/kernels/paged_attention.py:_paged_kernel``
+(q (B, H, D), launched as a window of K = 1) and ``_paged_window_kernel``
+(q (B, K, H, D)); the two wrappers count their launches apart.  The plain
+version is the gather oracle of ``repro/kernels/ref.py``
+(``paged_attention_ref`` and ``paged_attention_window_ref``).
 """
 from __future__ import annotations
 
@@ -32,11 +39,10 @@ from repro_torch.quant.quantize import unpack_int4
 NEG_INF = -1e30
 _QUANT_CODES = {"none": 0, "int8": 1, "int4": 2}
 
-#: Launches of the CUDA kernel (one per call that reaches it).
+#: Launches of the CUDA kernel for a single query per slot.
 LAUNCHES = 0
-
-_WINDOW_TODO = ("the K-token verify window (4-D q) is not ported yet "
-                "(ROADMAP queue 1 item 1)")
+#: Launches of the CUDA kernel for a K-token window.
+WINDOW_LAUNCHES = 0
 
 
 def _pool_quant(k_pages: torch.Tensor, k_scale: Optional[torch.Tensor]):
@@ -71,11 +77,12 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
                           k_scale: Optional[torch.Tensor] = None,
                           v_scale: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
-    """Gather-based paged decode attention in plain tensor ops: gather
-    every block-table page, dequantize, mask, softmax."""
-    if q.ndim == 4:
-        raise NotImplementedError(_WINDOW_TODO)
-    B, H, D = q.shape
+    """Gather-based paged attention in plain tensor ops: gather every
+    block-table page, dequantize, mask, softmax.  q (B, H, D) or a
+    K-token window (B, K, H, D); the output has q's shape."""
+    single = q.ndim == 3
+    q4 = q[:, None] if single else q
+    B, K, H, D = q4.shape
     KV = k_pages.shape[2]
     quant, page = _pool_quant(k_pages, k_scale)
     if quant == "int4":
@@ -92,35 +99,35 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
     S = bt.shape[1] * page
     k = k.reshape(B, S, KV, D)
     v = v.reshape(B, S, KV, D)
-    qg = q.reshape(B, KV, G, D).to(torch.float32) * sc
-    s = torch.einsum("bkgd,btkd->bkgt", qg, k)        # (B, KV, G, S)
+    qg = q4.reshape(B, K, KV, G, D).to(torch.float32) * sc
+    s = torch.einsum("bjkgd,btkd->bjkgt", qg, k)      # (B, K, KV, G, S)
     lengths = lengths.long()
+    q_abs = (lengths[:, None] - K
+             + torch.arange(K, device=q.device)[None])[..., None]  # (B, K, 1)
     if ring:
-        idx = _ring_positions(lengths, bt.shape[1], page)
-        valid = (idx >= 0) & (idx < lengths[:, None])
+        idx = _ring_positions(lengths, bt.shape[1], page)[:, None]
+        valid = (idx >= 0) & (idx <= q_abs)                        # (B, K, S)
     else:
-        idx = torch.arange(S, device=q.device)[None].expand(B, S)
-        valid = idx < lengths[:, None]
+        idx = torch.arange(S, device=q.device)[None, None]
+        valid = idx <= q_abs
     if window:
-        valid = valid & (idx > (lengths[:, None] - 1 - window))
-    vm = valid[:, None, None]
+        valid = valid & ((q_abs - idx) < window)
+    vm = valid[:, :, None, None]
     s = torch.where(vm, s, torch.full_like(s, NEG_INF))
     m = torch.amax(s, dim=-1, keepdim=True)
     e = torch.exp(s - m) * vm
     l = torch.sum(e, dim=-1, keepdim=True)
     p = e / torch.where(l == 0.0, torch.ones_like(l), l)
-    out = torch.einsum("bkgt,btkd->bkgd", p, v)
-    return out.reshape(B, H, D).to(q.dtype)
+    out = torch.einsum("bjkgt,btkd->bjkgd", p, v).reshape(B, K, H, D)
+    return (out[:, 0] if single else out).to(q.dtype)
 
 
 def _lib():
-    lib = _build.load("paged_attention")
-    fn = lib.paged_attention_decode
+    fn = _build.load("paged_attention").paged_attention
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p,           # tensors
-                       i, i, i, i, i, i, i, i, i,        # B H KV D page n quant window ring
-                       ctypes.c_float, p]                # scale, stream
+        # 8 tensors; B H KV D page n quant K window ring; scale; stream
+        fn.argtypes = [p] * 8 + [i] * 10 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -130,19 +137,12 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"paged_attention_cuda: {msg}")
 
 
-def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
-                         v_pages: torch.Tensor, block_tables: torch.Tensor,
-                         lengths: torch.Tensor, *, window: int = 0,
-                         ring: bool = False, scale: Optional[float] = None,
-                         k_scale: Optional[torch.Tensor] = None,
-                         v_scale: Optional[torch.Tensor] = None
-                         ) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream (no sync)."""
-    global LAUNCHES
-    if q.ndim == 4:
-        raise NotImplementedError(_WINDOW_TODO)
+def _launch(q, k_pages, v_pages, block_tables, lengths, window, ring, scale,
+            k_scale, v_scale) -> torch.Tensor:
+    """Check the operands and launch the kernel on PyTorch's current
+    stream (no sync).  ``q`` is (B, K, H, D)."""
     quant, page = _pool_quant(k_pages, k_scale)
-    B, H, D = q.shape
+    B, K, H, D = q.shape
     P, _, KV, Dk = k_pages.shape
     tensors = [q, k_pages, v_pages, block_tables, lengths]
     if quant != "none":
@@ -178,9 +178,44 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         ctypes.c_void_p(v_scale.data_ptr()) if quant != "none" else null,
         ctypes.c_void_p(block_tables.data_ptr()),
         ctypes.c_void_p(lengths.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        B, H, KV, D, page, block_tables.shape[1], _QUANT_CODES[quant],
+        B, H, KV, D, page, block_tables.shape[1], _QUANT_CODES[quant], K,
         int(window), int(bool(ring)), float(sc),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
-    _build.check(err, "paged_attention_decode launch")
+    _build.check(err, "paged_attention launch")
+    return out
+
+
+def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
+                         v_pages: torch.Tensor, block_tables: torch.Tensor,
+                         lengths: torch.Tensor, *, window: int = 0,
+                         ring: bool = False, scale: Optional[float] = None,
+                         k_scale: Optional[torch.Tensor] = None,
+                         v_scale: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Launch the CUDA kernel for a single query per slot, q (B, H, D)
+    (a window of K = 1)."""
+    global LAUNCHES
+    _check(q.ndim == 3, f"q must be (B, H, D), got {tuple(q.shape)}")
+    out = _launch(q[:, None], k_pages, v_pages, block_tables, lengths, window,
+                  ring, scale, k_scale, v_scale)
     LAUNCHES += 1
+    return out[:, 0]
+
+
+def paged_attention_window_cuda(q: torch.Tensor, k_pages: torch.Tensor,
+                                v_pages: torch.Tensor,
+                                block_tables: torch.Tensor,
+                                lengths: torch.Tensor, *, window: int = 0,
+                                ring: bool = False,
+                                scale: Optional[float] = None,
+                                k_scale: Optional[torch.Tensor] = None,
+                                v_scale: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
+    """Launch the CUDA kernel for a K-token window, q (B, K, H, D)."""
+    global WINDOW_LAUNCHES
+    _check(q.ndim == 4 and q.shape[1] >= 1,
+           f"q must be (B, K, H, D), got {tuple(q.shape)}")
+    out = _launch(q, k_pages, v_pages, block_tables, lengths, window, ring,
+                  scale, k_scale, v_scale)
+    WINDOW_LAUNCHES += 1
     return out

@@ -9,9 +9,11 @@ runs the named model at its full width from seeded random weights
 requests with prompts of ``--min-prompt-len``..``--prompt-len`` tokens
 and ``--steps`` new tokens each, drains the scheduler and reports
 tokens/s.  ``--precision`` quantizes the weights (int8 per channel,
-int4 group-32), ``--cache-dtype`` picks the KV page precision.  The
-static engine, ``--spec-k > 1``, ``--devices > 1`` and ``--dp > 1`` are
-not ported yet and are refused.
+int4 group-32), ``--cache-dtype`` picks the KV page precision, and
+``--spec-k K`` turns on self-speculative decoding (n-gram prompt-lookup
+drafts verified K tokens per step; outputs stay greedy).  The static
+engine, ``--devices > 1`` and ``--dp > 1`` are not ported yet and are
+refused.
 """
 from __future__ import annotations
 
@@ -32,8 +34,6 @@ def _refuse(args) -> Optional[str]:
     if args.engine != "paged":
         return ("--engine static is not ported yet (ROADMAP queue 1 item 5); "
                 "use --engine paged")
-    if args.spec_k > 1:
-        return "--spec-k > 1 is not ported yet (ROADMAP queue 1 item 1)"
     if args.devices > 1:
         return "--devices > 1 is not ported yet (ROADMAP queue 1 item 6)"
     if args.dp > 1:
@@ -104,8 +104,8 @@ def run_paged(args, spec, params, device) -> Dict[str, Any]:
     usable = eng.layout.num_pages - 1
     occ = eng.stats["occupancy_sum"] / max(1, eng.stats["iterations"])
     print(f"[serve] paged engine on {device} ({args.precision} weights, "
-          f"{args.cache_dtype} pages): {len(done)} requests, {tok} tokens in "
-          f"{dt:.2f}s ({tok / dt:.1f} tok/s)")
+          f"{args.cache_dtype} pages, spec_k={cfg.spec_k}): {len(done)} "
+          f"requests, {tok} tokens in {dt:.2f}s ({tok / dt:.1f} tok/s)")
     print(f"[serve] pool: {eng.layout.num_pages} pages x "
           f"{eng.layout.page_size} tok, mean occupancy {occ:.2f}, "
           f"preemptions {int(eng.stats['preemptions'])}, "
@@ -114,9 +114,20 @@ def run_paged(args, spec, params, device) -> Dict[str, Any]:
     if cfg.prefill_chunk_tokens:
         print(f"[serve] chunked prefill: {cfg.prefill_chunk_tokens}-token "
               f"budget, {int(eng.stats['prefill_chunks'])} partial chunks")
+    st = eng.stats
+    if cfg.spec_k > 1:
+        acc = st["spec_accepted"] / max(1, st["spec_drafted"])
+        print(f"[serve] spec decode: {int(st['spec_steps'])} windows, "
+              f"{int(st['spec_accepted'])}/{int(st['spec_drafted'])} drafts "
+              f"accepted ({acc:.2f}), "
+              f"{st['decode_tokens'] / max(1, st['iterations']):.2f} "
+              "tokens/iteration")
     print(np.stack([c.tokens[:8] for c in done[:4]]))
     return {"engine": eng, "completions": done, "seconds": dt, "tokens": tok,
-            "tokens_per_s": tok / dt, "decode_steps": backend.decode_steps}
+            "tokens_per_s": tok / dt, "decode_steps": backend.decode_steps,
+            "spec_steps": int(st["spec_steps"]),
+            "spec_drafted": int(st["spec_drafted"]),
+            "spec_accepted": int(st["spec_accepted"])}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:

@@ -6,13 +6,14 @@ Parameter names and shapes come from ``core.blocks``; weights are
 """
 from __future__ import annotations
 
-import math
 from typing import Dict
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.model_config import ModelSpec
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.quant.qlinear import qdot
 
 Params = Dict[str, torch.Tensor]
@@ -92,41 +93,26 @@ def grouped_out(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out.reshape(B, Sq, KV * G, out.shape[-1])
 
 
-def _mask(Sq: int, Sk: int, causal: bool, window: int, q_offset: int,
-          device) -> torch.Tensor:
-    q_idx = torch.arange(Sq, device=device)[:, None] + q_offset
-    k_idx = torch.arange(Sk, device=device)[None, :]
-    m = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
-    if causal:
-        m &= q_idx >= k_idx
-    if window:
-        m &= (q_idx - k_idx) < window
-    return m
-
-
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
          window: int = 0, softcap: float = 0.0) -> torch.Tensor:
-    """Full-materialization grouped-query attention in plain tensor ops."""
-    D = q.shape[-1]
-    s = grouped_scores(q, k) / math.sqrt(D)
-    if softcap:
-        s = torch.tanh(s / softcap) * softcap
-    m = _mask(q.shape[1], k.shape[1], causal, window, k.shape[1] - q.shape[1],
-              q.device)
-    s = torch.where(m[None, None, None], s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    return grouped_out(p, v).to(q.dtype)
+    """Full-materialization grouped-query attention in plain tensor ops:
+    the flash kernel's plain version, with the logit softcap.  A row with
+    no valid key gives zeros; no model path makes one (queries are
+    end-aligned with Sq <= Sk, so each sees at least its own key)."""
+    return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 softcap=softcap)
 
 
 def attention_block(spec: ModelSpec, p: Params, x: torch.Tensor,
                     positions: torch.Tensor, *, kind: str = "attn",
                     impl: str = "naive") -> torch.Tensor:
     """Projections + RoPE + attention (+output proj).  No residual/norm.
-    Only the ``naive`` (``sdpa``) path is ported."""
-    if impl not in ("naive", "auto"):
+    ``impl="pallas"`` takes the flash-attention kernel (no softcap, as in
+    the JAX package); ``"naive"``/``"auto"`` take ``sdpa``."""
+    if impl not in ("naive", "auto", "pallas"):
         raise NotImplementedError(
-            f"attention impl {impl!r}: the flash kernel is not ported yet "
-            "(ROADMAP queue 1 item 3)")
+            f"attention impl {impl!r} is not ported (want naive | auto | "
+            "pallas)")
     B, S, _ = x.shape
     H, KV, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
     q = qdot(x, p["wq"]).reshape(B, S, H, D)
@@ -137,8 +123,11 @@ def attention_block(spec: ModelSpec, p: Params, x: torch.Tensor,
         q = rope(q, positions, spec.rope_theta)
         k = rope(k, positions, spec.rope_theta)
     window = spec.sliding_window if kind == "attn_local" else 0
-    o = sdpa(q, k, v, causal=causal, window=window,
-             softcap=spec.attn_logit_softcap)
+    if impl == "pallas":
+        o = kops.flash_attention(q, k, v, causal=causal, window=window)
+    else:
+        o = sdpa(q, k, v, causal=causal, window=window,
+                 softcap=spec.attn_logit_softcap)
     return qdot(o.reshape(B, S, H * D), p["wo"])
 
 

@@ -15,6 +15,8 @@ Entry points:
     init_paged_cache(spec, batch, max_seq, layout) -> paged cache
     prefill_paged(...)                             -> (logits, cache)  suffix prefill
     decode_step_paged(params, spec, cache, tokens) -> (logits, cache)  one token
+    decode_window_paged(params, spec, cache, tokens, lens)
+                                                   -> (logits, cache)  K-token verify
 """
 from __future__ import annotations
 
@@ -347,6 +349,46 @@ def _attn_decode_paged(spec, p, x, pos, kv, block_tables, *, kind,
     return qdot(o.reshape(B, 1, H * D), p["wo"], impl=impl)
 
 
+def _attn_decode_window_paged(spec, p, x, pos, lens, kv, block_tables, *,
+                              kind, impl="auto") -> torch.Tensor:
+    """Paged attention for a K-token DECODE WINDOW (speculative verify).
+
+    ``x`` is (B, K, d): the last committed token plus K-1 drafted tokens
+    per slot; token j lands at absolute position ``pos + j``; ``lens``
+    (B,) counts the real window positions of each slot, and the K/V
+    rows past it route to the null page.  All K rows scatter before the
+    attention, so the window reads itself causally from the same pages
+    (and the same per-token quantized values) a sequential decode would.
+    Flat block tables only (ROADMAP queue 1 item 2 for rings)."""
+    B, K = x.shape[:2]
+    H, KV, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    page = kv["k_scale"].shape[-1] if "k_scale" in kv else kv["k_pages"].shape[1]
+    q = qdot(x, p["wq"], impl=impl).reshape(B, K, H, D)
+    k = qdot(x, p["wk"], impl=impl).reshape(B, K, KV, D)
+    v = qdot(x, p["wv"], impl=impl).reshape(B, K, KV, D)
+    posb = pos.long()[:, None] + torch.arange(K, device=x.device)[None]  # (B, K)
+    q = L.rope(q, posb, spec.rope_theta)
+    k = L.rope(k, posb, spec.rope_theta)
+
+    valid = torch.arange(K, device=x.device)[None] < lens[:, None]      # (B, K)
+    # an out-of-range entry clamps to the last one, as a JAX gather does
+    page_idx = torch.clamp(posb // page, max=block_tables.shape[1] - 1)
+    rows = torch.arange(B, device=x.device)[:, None]
+    tgt_page = torch.where(valid, block_tables[rows, page_idx].long(),
+                           torch.zeros_like(page_idx))
+    tgt_off = posb % page
+    for name, r in (("k", k), ("v", v)):
+        _scatter_kv_rows(kv, name, r.reshape(B * K, KV, D),
+                         tgt_page.reshape(-1), tgt_off.reshape(-1))
+
+    window = spec.sliding_window if kind == "attn_local" else 0
+    o = kops.paged_attention(
+        q.contiguous(), kv["k_pages"], kv["v_pages"], block_tables, pos + K,
+        window=window, k_scale=kv.get("k_scale"), v_scale=kv.get("v_scale"),
+        impl=impl)
+    return qdot(o.reshape(B, K, H * D), p["wo"], impl=impl)
+
+
 def _suffix_attn_paged(spec, p, xn, positions, kv, pref_pages, prefix_len,
                        tgt_page, tgt_off, *, kind) -> torch.Tensor:
     """Attention for a prompt SUFFIX against cached prefix pages: gather
@@ -402,6 +444,20 @@ def _suffix_attn_paged(spec, p, xn, positions, kv, pref_pages, prefix_len,
     return out
 
 
+def _paged_layers(params, spec: ModelSpec, cache, x, attn,
+                  impl: str = "auto") -> torch.Tensor:
+    """The residual stack over a paged cache: each layer adds
+    ``attn(p, norm1(x), kv, kind)`` (its paged attention, which reads and
+    writes the layer's pools ``kv``) and then its MLP."""
+    for g, gp, cg in zip(group_plan(spec), params["groups"], cache["groups"]):
+        base = _check_dense(g.kind)
+        for p, kv in zip(gp, cg):
+            y = x + attn(p, L.norm(spec, p, "norm1", x), kv, base)
+            x = y + L.mlp_block(spec, p, L.norm(spec, p, "norm2", y),
+                                impl=impl)
+    return x
+
+
 def prefill_paged(params, spec: ModelSpec, tokens, cache, slot: int, bt_row,
                   prefix_len: int, true_len: int, *,
                   n_prefix_pages: int) -> Tuple[torch.Tensor, Params]:
@@ -424,15 +480,11 @@ def prefill_paged(params, spec: ModelSpec, tokens, cache, slot: int, bt_row,
                            torch.zeros_like(page_idx))
     tgt_off = abs_pos % page
 
-    x = _embed(params, spec, tokens)
-    for g, gp, cg in zip(group_plan(spec), params["groups"], cache["groups"]):
-        base = _check_dense(g.kind)
-        for p, kv in zip(gp, cg):
-            xn = L.norm(spec, p, "norm1", x)
-            h = _suffix_attn_paged(spec, p, xn, positions, kv, pref_pages,
-                                   prefix_len, tgt_page, tgt_off, kind=base)
-            y = x + h
-            x = y + L.mlp_block(spec, p, L.norm(spec, p, "norm2", y))
+    x = _paged_layers(
+        params, spec, cache, _embed(params, spec, tokens),
+        lambda p, xn, kv, kind: _suffix_attn_paged(
+            spec, p, xn, positions, kv, pref_pages, prefix_len, tgt_page,
+            tgt_off, kind=kind))
     logits = _lm_head(params, spec, x[:, true_len - 1:true_len])
     cache["pos"][slot] = prefix_len + true_len
     cache["block_tables"][slot] = bt_row
@@ -448,16 +500,29 @@ def decode_step_paged(params, spec: ModelSpec, cache, tokens, *,
     ``"auto"`` and only kernel-vs-plain checks pass ``"plain"``."""
     pos = cache["pos"]
     bt = cache["block_tables"]
-    x = _embed(params, spec, tokens)
-    for g, gp, cg in zip(group_plan(spec), params["groups"], cache["groups"]):
-        base = _check_dense(g.kind)
-        for p, kv in zip(gp, cg):
-            xn = L.norm(spec, p, "norm1", x)
-            h = _attn_decode_paged(spec, p, xn, pos, kv, bt, kind=base,
-                                   impl=impl)
-            y = x + h
-            x = y + L.mlp_block(spec, p, L.norm(spec, p, "norm2", y),
-                                impl=impl)
+    x = _paged_layers(
+        params, spec, cache, _embed(params, spec, tokens),
+        lambda p, xn, kv, kind: _attn_decode_paged(
+            spec, p, xn, pos, kv, bt, kind=kind, impl=impl), impl=impl)
     logits = _lm_head(params, spec, x, impl=impl)
     cache["pos"] = pos + 1
     return logits, cache
+
+
+def decode_window_paged(params, spec: ModelSpec, cache, tokens, lens, *,
+                        impl: str = "auto") -> Tuple[torch.Tensor, Params]:
+    """K-token decode window over a paged cache (speculative verify):
+    ``tokens`` (B, K) is the last committed token followed by K-1 drafts
+    per slot, ``lens`` (B,) how many of the K are real.  Returns logits
+    for all K positions (B, K, V) -- position j's are what sequential
+    ``decode_step_paged`` would give after committing ``tokens[:, :j+1]``
+    -- and the cache with every real window row written but ``pos``
+    UNCHANGED: the caller advances it by the accepted count.  ``impl``
+    as in ``decode_step_paged``."""
+    pos = cache["pos"]
+    bt = cache["block_tables"]
+    x = _paged_layers(
+        params, spec, cache, _embed(params, spec, tokens),
+        lambda p, xn, kv, kind: _attn_decode_window_paged(
+            spec, p, xn, pos, lens, kv, bt, kind=kind, impl=impl), impl=impl)
+    return _lm_head(params, spec, x, impl=impl), cache

@@ -4,16 +4,17 @@ The continuous-batching scheduler (``serve/scheduler.py``) is pure host
 state and drives the device through the ``PagedKVBackend`` interface
 below (the interface of ``repro.serve.backend``).  ``SingleDeviceBackend``
 holds the whole page pool on one torch device and runs the model
-eagerly: cold admission (``lm.prefill`` + ``scatter_prompt_pages``),
-suffix prefill (``lm.prefill_paged``), the K=1 decode step
-(``lm.decode_step_paged``, whose attention and quantized matmuls are the
-CUDA kernels on a CUDA device), copy-on-write, slot release and the host
-swap tier.  Pools are updated in place.
+eagerly: cold admission (``lm.prefill`` + ``scatter_prompt_pages``; its
+attention is the flash kernel with ``attention_impl="pallas"``), suffix
+prefill (``lm.prefill_paged``), the K=1 decode step
+(``lm.decode_step_paged``) and the speculative verify step
+(``lm.decode_window_paged`` with on-device greedy acceptance), whose
+attention and quantized matmuls are the CUDA kernels on a CUDA device,
+copy-on-write, slot release and the host swap tier.  Pools are updated
+in place.
 
-Not ported yet, and refused at construction or call time rather than
-run wrongly: the speculative verify window (``SchedulerConfig.spec_k >
-1``, ``decode`` with ``lens``) and the ring block tables of uniformly
-sliding-window stacks.
+Not ported yet, and refused at construction rather than run wrongly:
+the ring block tables of uniformly sliding-window stacks.
 """
 from __future__ import annotations
 
@@ -27,8 +28,6 @@ from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.serve import paged_cache as pc
 
-SPEC_TODO = ("speculative decode windows (spec_k > 1) are not ported yet "
-             "(ROADMAP queue 1 item 1)")
 RING_TODO = ("ring block tables for sliding-window stacks are not ported yet "
              "(ROADMAP queue 1 item 2)")
 
@@ -115,8 +114,6 @@ class SingleDeviceBackend(PagedKVBackend):
     ``cuda`` and raises when there is none."""
 
     def __init__(self, params: Any, spec: ModelSpec, cfg, *, device=None):
-        if getattr(cfg, "spec_k", 1) > 1:
-            raise NotImplementedError(SPEC_TODO)
         self.window = pc.ring_window(spec, getattr(cfg, "windowed_kv", None))
         if self.window > 0:
             raise NotImplementedError(RING_TODO)
@@ -128,19 +125,23 @@ class SingleDeviceBackend(PagedKVBackend):
             spec, max_seq=cfg.max_seq, page_size=cfg.page_size,
             num_pages=cfg.num_pages, kv_budget_bytes=cfg.kv_budget_bytes,
             cache_dtype=cfg.cache_dtype, max_slots=cfg.max_slots,
-            tp=self.tp, window=self.window)
+            tp=self.tp, window=self.window,
+            spec_k=getattr(cfg, "spec_k", 1))
         self.plan = pc.plan_for_layout(spec, self.layout, cfg.cache_dtype)
         self.cache = lm.init_paged_cache(spec, cfg.max_slots, cfg.max_seq,
                                          self.layout, cfg.cache_dtype,
                                          device=self.device)
-        #: decode steps run (the scheduler's batched K=1 steps)
+        #: decode steps run (batched K=1 steps and K-token verify steps)
         self.decode_steps = 0
+        #: cold admissions run (full-prompt ``lm.prefill``)
+        self.cold_admissions = 0
 
     def _tensor(self, a, dtype=torch.int32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
     @torch.no_grad()
     def admit_full(self, padded_tokens, slot, true_len, bt_row) -> int:
+        self.cold_admissions += 1
         tokens = self._tensor(padded_tokens, torch.int64)
         logits, pre = lm.prefill(self.params, self.spec, {"tokens": tokens},
                                  max_seq=tokens.shape[1],
@@ -173,8 +174,11 @@ class SingleDeviceBackend(PagedKVBackend):
 
     @torch.no_grad()
     def decode(self, tokens, active, lens=None):
-        if tokens.shape[1] != 1 or lens is not None:
-            raise NotImplementedError(SPEC_TODO)
+        if lens is None and tokens.shape[1] != 1:
+            raise ValueError(f"a {tokens.shape[1]}-token window needs lens")
+        self.decode_steps += 1
+        if lens is not None:
+            return self._decode_window(tokens, active, lens)
         act = self._tensor(active)
         logits, self.cache = lm.decode_step_paged(
             self.params, self.spec, self.cache, self._tensor(tokens, torch.int64))
@@ -185,9 +189,40 @@ class SingleDeviceBackend(PagedKVBackend):
         # logits held NaN/inf instead of committing its token
         finite = torch.all(torch.isfinite(logits[:, 0]), dim=-1).to(torch.int32)
         nxt = torch.argmax(logits[:, 0], dim=-1)
-        self.decode_steps += 1
         return (nxt.cpu().numpy()[:, None].astype(np.int32),
                 np.asarray(active, np.int32), finite.cpu().numpy())
+
+    def _decode_window(self, tokens, active, lens):
+        """The fused speculative verify step: score a K-token window per
+        slot (last committed token + K-1 drafts), greedy-accept the drafts
+        on the device and advance each slot's ``pos`` by exactly the
+        emitted count, the rollback that keeps rejected-draft K/V outside
+        the valid context.  Returns (out (B, K) greedy token per window
+        position, n_emit (B,) accepted drafts + the bonus token, ok (B,)
+        1 where every REAL window position's logits are finite); only
+        these integers cross to the host, in one copy."""
+        tok = self._tensor(tokens, torch.int64)
+        act = self._tensor(active)
+        ln = self._tensor(lens)
+        pos0 = self.cache["pos"]
+        logits, self.cache = lm.decode_window_paged(
+            self.params, self.spec, self.cache, tok, ln)
+        out = torch.argmax(logits, dim=-1)                      # (B, K)
+        K = tok.shape[1]
+        j = torch.arange(K - 1, device=self.device)
+        ok = (tok[:, 1:] == out[:, :-1]) & (j[None] < ln[:, None] - 1)
+        accepted = torch.cumprod(ok.to(torch.int32), dim=1).sum(dim=1)
+        n_emit = (accepted + 1) * act
+        self.cache["pos"] = ((pos0 + n_emit) * act).to(torch.int32)
+        # finite check over the real window positions only (padded
+        # positions score pad tokens, which never commit)
+        pos_ok = torch.all(torch.isfinite(logits), dim=-1)     # (B, K)
+        real = torch.arange(K, device=self.device)[None] < ln[:, None]
+        finite = torch.all(pos_ok | ~real, dim=1)
+        host = torch.cat([out, n_emit[:, None].to(out.dtype),
+                          finite[:, None].to(out.dtype)], dim=1).cpu().numpy()
+        return (host[:, :K].astype(np.int32), host[:, K].astype(np.int32),
+                host[:, K + 1].astype(np.int32))
 
     def copy_page(self, src_page: int, dst_page: int) -> None:
         pc.copy_page(self.cache, src_page, dst_page)

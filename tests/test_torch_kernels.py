@@ -5,7 +5,7 @@ so these tests hold the plain versions (the arithmetic the CUDA kernels
 repeat, which ``chip_smoke.py`` checks on the card) against:
 
 * the Pallas kernel bodies run with ``interpret=True``;
-* the JAX gather oracle ``repro.kernels.ref`` and ``qdot``.
+* the JAX oracles ``repro.kernels.ref`` and ``qdot``.
 
 Inputs are numpy arrays from a seed, quantized once and handed to both
 sides, so both read the same bytes.  Tolerances:
@@ -15,6 +15,8 @@ sides, so both read the same bytes.  Tolerances:
 * plain vs the Pallas body, the JAX package's own kernel-vs-oracle
   bands (2e-6 fp32, 1e-5 int8, 1e-4 int4): online softmax over pages
   against one global softmax;
+* flash attention, 2e-6 against both (unit-variance inputs, outputs of
+  order 1): one softmax or an online one over 128-key tiles, in f32;
 * matmuls, 2e-5 of the output's scale: one f32 contraction in another
   order.
 """
@@ -24,6 +26,7 @@ import pytest
 import torch
 
 from repro.kernels import ref
+from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.paged_attention import paged_attention_pallas
 from repro.kernels.quant_matmul import quant_matmul_pallas
 from repro.quant.qlinear import qdot as jax_qdot
@@ -32,6 +35,7 @@ from repro.quant.quantize import (lane_major_scales, pack_int4, quantize,
                                   quantize_kv_int4, quantize_kv_int8)
 from repro_torch.bridge import params_from_jax
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.paged_attention import paged_attention_plain
 from repro_torch.kernels.quant_matmul import quant_matmul_plain
 from repro_torch.quant.qlinear import qdot
@@ -53,10 +57,12 @@ def _pools(quant, kf, vf):
                  (k, v, lane_major_scales(ks), lane_major_scales(vs)))
 
 
-def _fixture(seed, B, H, KV, D, n_entries, lengths):
+def _fixture(seed, B, H, KV, D, n_entries, lengths, K=0):
+    """Pools, tables and lengths; q (B, H, D), or a K-token window
+    (B, K, H, D) when K > 0."""
     rng = np.random.default_rng(seed)
     P = B * n_entries + 1
-    q = rng.normal(size=(B, H, D)).astype(np.float32)
+    q = rng.normal(size=(B, K, H, D) if K else (B, H, D)).astype(np.float32)
     kf = rng.normal(size=(P, PAGE, KV, D)).astype(np.float32)
     vf = rng.normal(size=(P, PAGE, KV, D)).astype(np.float32)
     bt = rng.permutation(np.arange(1, P))[:B * n_entries].reshape(
@@ -72,10 +78,10 @@ CASES = {
 }
 
 
-def _run_both(quant, mode, H, KV, D, pallas: bool):
+def _run_both(quant, mode, H, KV, D, pallas: bool, K=0):
     n_entries, window, ring, lengths = CASES[mode]
-    q, kf, vf, bt, ln = _fixture(H * 7 + KV, len(lengths), H, KV, D,
-                                 n_entries, lengths)
+    q, kf, vf, bt, ln = _fixture(H * 7 + KV + K, len(lengths), H, KV, D,
+                                 n_entries, lengths, K)
     kp, vp, ks, vs = _pools(quant, kf, vf)
     jargs = [jnp.asarray(a) for a in (q, kp, vp, bt, ln)]
     jkw = dict(window=window, ring=ring,
@@ -115,16 +121,73 @@ def test_paged_attention_plain_matches_ref_gqa8(quant, mode):
     _run_both(quant, mode, 8, 1, 32, pallas=False)
 
 
-def test_paged_attention_window_query_not_ported():
-    q = torch.zeros((1, 2, 4, 8))
-    kp = torch.zeros((2, PAGE, 2, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        paged_attention_plain(q, kp, kp, torch.zeros((1, 1), dtype=torch.int32),
-                              torch.ones(1, dtype=torch.int32))
+@pytest.mark.parametrize("K", [2, 4])
+@pytest.mark.parametrize("quant", ["fp32", "int8", "int4"])
+@pytest.mark.parametrize("mode", ["full", "window", "ring"])
+def test_paged_attention_window_plain_matches_jax(quant, mode, K):
+    """K-token verify windows, q (B, K, H, D): fp32/int8/int4 pools x
+    full/window/ring tables, GQA G=2, ragged lengths with a 0 and some
+    shorter than K (queries before position 0 see no key): plain vs the
+    JAX window oracle and the Pallas window body."""
+    o_plain, o_pal = _run_both(quant, mode, 4, 2, 16, pallas=True, K=K)
+    assert o_plain.shape == (6, K, 4, 16)
+    assert np.max(np.abs(o_plain - o_pal)) <= PALLAS_TOL[quant]
+
+
+def test_paged_attention_window_of_one_is_single_query():
+    """A 1-token window is the single-query call: same positions, same
+    masks, same numbers."""
+    n_entries, window, ring, lengths = CASES["window"]
+    q, kf, vf, bt, ln = _fixture(3, len(lengths), 4, 2, 16, n_entries, lengths)
+    args = [torch.from_numpy(a) for a in (q, kf, vf, bt, ln)]
+    one = paged_attention_plain(args[0][:, None], *args[1:], window=window)
+    torch.testing.assert_close(one[:, 0], paged_attention_plain(
+        *args, window=window), rtol=1e-6, atol=1e-6)
 
 
 def _rand(seed, *shape):
     return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("Sq,Sk,H,KV", [(128, 128, 4, 2), (128, 256, 4, 1),
+                                        (256, 256, 2, 2)])
+def test_flash_attention_plain_matches_jax(Sq, Sk, H, KV, window):
+    """Causal prompt attention with and without a sliding window, GQA,
+    end-aligned queries (Sq < Sk): plain vs the JAX oracle and the
+    Pallas body (128-row tiles)."""
+    B, D = 2, 16
+    q, k, v = (_rand(Sq + Sk + H, B, Sq, H, D), _rand(Sk + KV, B, Sk, KV, D),
+               _rand(Sk + 7, B, Sk, KV, D))
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    o_ref = np.asarray(ref.flash_attention_ref(jq, jk, jv, causal=True,
+                                               window=window))
+    o_pal = np.asarray(flash_attention_pallas(jq, jk, jv, causal=True,
+                                              window=window, interpret=True))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    o_plain = flash_attention_plain(tq, tk, tv, causal=True,
+                                    window=window).numpy()
+    np.testing.assert_array_equal(
+        ops.flash_attention(tq, tk, tv, causal=True, window=window).numpy(),
+        o_plain)
+    assert o_plain.shape == (B, Sq, H, D)
+    np.testing.assert_allclose(o_plain, o_ref, rtol=2e-6, atol=2e-6)
+    np.testing.assert_allclose(o_plain, o_pal, rtol=2e-6, atol=2e-6)
+
+
+def test_flash_attention_fully_masked_rows_are_zero():
+    """More queries than keys: the first Sq - Sk end-aligned queries sit
+    before position 0 and see no key.  Those rows are zeros (where the
+    JAX oracle's softmax averages every value row); the other rows match
+    the oracle."""
+    q, k, v = _rand(1, 1, 12, 2, 8), _rand(2, 1, 8, 1, 8), _rand(3, 1, 8, 1, 8)
+    out = flash_attention_plain(*(torch.from_numpy(a) for a in (q, k, v)),
+                                causal=True).numpy()
+    assert np.all(out[:, :4] == 0.0)
+    o_ref = np.asarray(ref.flash_attention_ref(
+        *(jnp.asarray(a) for a in (q, k, v)), causal=True))
+    np.testing.assert_allclose(out[:, 4:], o_ref[:, 4:], rtol=2e-6, atol=2e-6)
+    assert not np.allclose(o_ref[:, :4], 0.0)
 
 
 @pytest.mark.parametrize("bits", [8, 4])
@@ -193,3 +256,26 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         quant_matmul_cuda(torch.zeros((1, 64)),
                           torch.zeros((64, 8), dtype=torch.int8),
                           torch.ones(8))
+
+
+def test_new_cuda_wrappers_refuse_cpu_tensors():
+    """Likewise the window and flash wrappers, and the dispatch sends a
+    CUDA-less CPU call to neither."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_window_cuda
+    kp = torch.zeros((2, PAGE, 1, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_attention_window_cuda(
+            torch.zeros((1, 2, 2, 8)), kp, kp,
+            torch.zeros((1, 1), dtype=torch.int32),
+            torch.full((1,), 2, dtype=torch.int32))
+    x = torch.zeros((1, 4, 2, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(x, x[:, :, :1], x[:, :, :1])
+    ops.reset_launch_counts()
+    ops.flash_attention(x, x[:, :, :1], x[:, :, :1])
+    ops.paged_attention(torch.zeros((1, 2, 2, 8)), kp, kp,
+                        torch.zeros((1, 1), dtype=torch.int32),
+                        torch.full((1,), 2, dtype=torch.int32))
+    assert ops.launch_counts() == {"paged_attention": 0, "paged_window": 0,
+                                   "quant_matmul": 0, "flash_attention": 0}

@@ -26,10 +26,27 @@ def test_paged_launch_int4_weights_int8_pages_on_cpu():
     assert "tok/s" in out.stdout
 
 
+def test_spec_launch_on_cpu():
+    """``--spec-k 2``: the verify-window engine end to end, with the JAX
+    launcher's spec-decode stats line and the counts in the result."""
+    from repro_torch.launch import serve
+    res = serve.main(["--engine", "paged", "--local", "--device", "cpu",
+                      "--spec-k", "2", "--steps", "24", "--layers", "2",
+                      "--width", "64", "--vocab", "128"])
+    assert res["tokens"] == 4 * 24
+    assert res["spec_steps"] > 0 and res["spec_accepted"] > 0
+    assert res["spec_drafted"] == res["spec_steps"]          # K-1 = 1 each
+    out = _run("--engine", "paged", "--local", "--device", "cpu",
+               "--spec-k", "2")
+    assert out.returncode == 0, out.stderr
+    assert "spec_k=2" in out.stdout
+    assert "[serve] spec decode:" in out.stdout
+    assert "tokens/iteration" in out.stdout
+
+
 def test_launch_refuses_unported_options(capsys):
     from repro_torch.launch import serve
-    for extra in (["--spec-k", "2"], ["--devices", "2"], ["--dp", "2"],
-                  ["--engine", "static"]):
+    for extra in (["--devices", "2"], ["--dp", "2"], ["--engine", "static"]):
         with pytest.raises(SystemExit) as exc:
             serve.main(["--local", "--device", "cpu", *extra])
         assert exc.value.code != 0

@@ -6,7 +6,8 @@ Weights are made once by ``repro.models.lm.init`` (and
 port through ``repro_torch.bridge``, so both sides hold the same bytes.
 Both packages then run the same sequence on their own page pools: cold
 prefill scattered into pages, a prefix-hit suffix prefill, and decode
-steps fed the same tokens.  Pool writes are compared byte for byte
+steps fed the same tokens; speculative verify windows and the
+flash-attention prefill start from one state.  Pool writes are compared byte for byte
 where both sides quantize the same float rows; elsewhere the rows each
 side computes differ in the last bits, so an int8/int4 code can round
 the other way, and logits are compared within a band.
@@ -246,3 +247,100 @@ def test_scatter_kv_rows_bytes_equal_jax(cache_dtype):
         # page 0 is the null page: duplicate writes land there in
         # unspecified order on both sides
         np.testing.assert_array_equal(a[1:], b[1:], err_msg=name)
+
+
+def _bridged_window_state(spec, jp, cache_dtype):
+    """A JAX paged cache with slot 0 at an ODD position (11) and slot 1 at
+    an even one (16), and the port's copy of it."""
+    layout = jlm.PagedLayout(num_pages=NUM_PAGES, page_size=PAGE)
+    jc = jlm.init_paged_cache(spec, SLOTS, MAX_SEQ, layout, cache_dtype)
+    _, jc = _jax_admit(spec, jp, jc, 0, _prompt(4, 11), [2, 6])
+    _, jc = _jax_admit(spec, jp, jc, 1, _prompt(5, 16), [4, 8, 10])
+    return jc, bridge.cache_from_jax(jax.tree_util.tree_map(np.asarray, jc),
+                                     "cpu")
+
+
+@pytest.mark.parametrize("cache_dtype", ["fp32", "int8", "int4"])
+def test_decode_window_from_bridged_cache_matches_jax(fixture, cache_dtype):
+    """One K=3 verify window from ONE cache state, int4 weights, ragged
+    ``lens`` (3 and 2): window rows start at an odd position in slot 0
+    (int4: a high nibble, then both nibbles of the next byte) and at an
+    even one in slot 1.  Logits of every window position agree within the
+    band, ``pos`` stays put, and the written rows decode alike: a
+    following single-token step from both caches agrees too."""
+    spec, params = fixture
+    jp, tp = params["int4"]
+    jc, tc = _bridged_window_state(spec, jp, cache_dtype)
+    tokens = np.asarray([[7, 3, 9], [9, 120, 0]], np.int32)
+    lens = np.asarray([3, 2], np.int32)
+    jl, jc = jlm.decode_window_paged(jp, spec, jc, jnp.asarray(tokens),
+                                     jnp.asarray(lens))
+    tl, tc = tlm.decode_window_paged(tp, spec, tc, torch.from_numpy(tokens),
+                                     torch.from_numpy(lens))
+    assert tl.shape == (SLOTS, 3, spec.padded_vocab)
+    assert_close_logits(tl.numpy(), np.asarray(jl), atol=ATOL[cache_dtype],
+                        context="window")
+    np.testing.assert_array_equal(tc["pos"].numpy(), [11, 16])
+    # commit the real rows and decode one more token from both states
+    jc["pos"] = jc["pos"] + jnp.asarray(lens)
+    tc["pos"] = tc["pos"] + torch.from_numpy(lens)
+    nxt = np.asarray([[5], [6]], np.int32)
+    jl, _ = jlm.decode_step_paged(jp, spec, jc, jnp.asarray(nxt))
+    tl, _ = tlm.decode_step_paged(tp, spec, tc, torch.from_numpy(nxt))
+    assert_close_logits(tl.numpy(), np.asarray(jl), atol=ATOL[cache_dtype],
+                        context="decode after window")
+
+
+@pytest.mark.parametrize("cache_dtype", ["fp32", "int8", "int4"])
+def test_window_positions_match_sequential_decode(fixture, cache_dtype):
+    """Window position j scores what j sequential ``decode_step_paged``
+    calls give after committing the window's first j tokens (the
+    exactness that greedy acceptance rests on): same pages, per-token
+    quantization, per-position rope; only the matmul rows (M = B*K
+    against M = B) differ."""
+    spec, params = fixture
+    jp, tp = params["int4"]
+    _, seq = _bridged_window_state(spec, jp, cache_dtype)
+    _, win = _bridged_window_state(spec, jp, cache_dtype)
+    K = 4
+    toks = [np.asarray([[7], [9]], np.int32)]
+    seq_logits = []
+    for _ in range(K):
+        l, seq = tlm.decode_step_paged(tp, spec, seq, torch.from_numpy(toks[-1]))
+        seq_logits.append(l[:, 0].numpy())
+        toks.append(l[:, 0].argmax(-1).numpy().astype(np.int32)[:, None])
+    window = np.concatenate(toks[:K], axis=1)
+    wl, win = tlm.decode_window_paged(tp, spec, win, torch.from_numpy(window),
+                                      torch.full((SLOTS,), K, dtype=torch.int32))
+    for j in range(K):
+        assert_close_logits(wl[:, j].numpy(), seq_logits[j],
+                            atol=ATOL[cache_dtype], context=f"position {j}")
+        np.testing.assert_array_equal(wl[:, j].argmax(-1).numpy(),
+                                      seq_logits[j].argmax(-1))
+    np.testing.assert_array_equal(win["pos"].numpy(), [11, 16])
+    np.testing.assert_array_equal(seq["pos"].numpy(), [11 + K, 16 + K])
+
+
+@pytest.mark.parametrize("prec", ["fp32", "int4"])
+def test_prefill_pallas_logits_match_jax(fixture, prec):
+    """``prefill(impl="pallas")`` (the flash attention op) against the
+    JAX function on a bucket-padded 128-token prompt of 97 real tokens,
+    and against the port's own ``sdpa`` prefill."""
+    spec, params = fixture
+    jp, tp = params[prec]
+    prompt = np.zeros((1, 128), np.int32)
+    prompt[0, :97] = _prompt(8, 97)
+    jl, jc = jlm.prefill(jp, spec, {"tokens": jnp.asarray(prompt)},
+                         max_seq=128, impl="pallas", true_len=97)
+    tl, tc = tlm.prefill(tp, spec, {"tokens": torch.from_numpy(prompt)},
+                         max_seq=128, impl="pallas", true_len=97)
+    assert_close_logits(tl.numpy(), np.asarray(jl), context=prec)
+    nl, _ = tlm.prefill(tp, spec, {"tokens": torch.from_numpy(prompt)},
+                        max_seq=128, true_len=97)
+    assert_close_logits(tl.numpy(), nl.numpy(), context="flash vs sdpa")
+    for jg, tg in zip(jc["groups"], tc["groups"]):
+        for jl_, tl_ in zip(jg, tg):
+            for name in ("k", "v"):
+                np.testing.assert_allclose(tl_[name].numpy(),
+                                           np.asarray(jl_[name]),
+                                           rtol=2e-5, atol=2e-6)

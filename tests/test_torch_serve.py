@@ -148,22 +148,29 @@ def test_swap_round_trip_byte_identical(fixture, cache_dtype):
 
 
 def test_spec_k_and_ring_stacks_refused(fixture):
+    """spec_k > 1 is served now (the verify window; its parity tests are
+    in ``test_torch_serve_spec.py``), but not on ring stacks, and a
+    multi-token window without ``lens`` is refused; ring block tables
+    are still refused."""
     spec, params = fixture
     _, tp = params["fp32"]
     cfg = tsched.SchedulerConfig(max_slots=2, page_size=8, max_seq=32,
                                  num_pages=10, spec_k=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsched.ContinuousBatchingEngine(tp, spec, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SingleDeviceBackend(tp, spec, cfg, device="cpu")
+    be = SingleDeviceBackend(tp, spec, cfg, device="cpu")
+    with pytest.raises(ValueError, match="lens"):
+        be.decode(np.zeros((2, 2), np.int32), np.ones(2, np.int32))
     local = ARCHS["gemma3-1b"].scaled_down(layers=2, width=64, vocab=128)
     assert set(local.layer_kinds()) == {"attn_local"}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SingleDeviceBackend({}, local, cfg, device="cpu")
     cfg = tsched.SchedulerConfig(max_slots=2, page_size=8, max_seq=32,
                                  num_pages=10)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SingleDeviceBackend({}, local, cfg, device="cpu")
     be = SingleDeviceBackend(tp, spec, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        be.decode(np.zeros((2, 2), np.int32), np.ones(2, np.int32),
-                  np.ones(2, np.int32))
-    torch.testing.assert_close(be.cache["pos"], torch.zeros(2, dtype=torch.int32))
+    out, n_emit, ok = be.decode(np.zeros((2, 2), np.int32),
+                                np.ones(2, np.int32), np.ones(2, np.int32))
+    assert out.shape == (2, 2)
+    np.testing.assert_array_equal(n_emit, [1, 1])
+    np.testing.assert_array_equal(ok, [1, 1])
+    torch.testing.assert_close(be.cache["pos"], torch.ones(2, dtype=torch.int32))
