@@ -1,21 +1,28 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port (``src/repro_torch``) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase
+    python3 chip_smoke.py kernels,ring    # only the named phases
 
 Phases, each fatal on failure:
 
 1. device: the card, ``nvidia-smi`` name and power limit, torch/CUDA
-   versions, and the build of the CUDA kernels from ``csrc/``;
-2. kernels: each kernel against its plain PyTorch version on the card at
+   versions, and the build of the CUDA kernels from ``csrc/`` (one
+   ``nvcc`` per source, all started together);
+2. kernels: each kernel against its plain PyTorch version on the card,
+   timed with CUDA events beside the bound and one library call, at
    full-width TinyLlama-1.1B shapes (paged attention: fp32/int8/int4
    pools x full/window/ring, B=8, H=32, KV=4, D=64, page 16, ragged
    lengths with a 0, for one query and for a K=4 verify window;
-   dequantizing matmul: int8/int4 at M in {1, 8, 128} over the model's
-   matmul shapes; flash attention: B=1, H=32, KV=4, D=64, causal, Sq=Sk
-   in {128, 256, 512}, Sq=128 against Sk=256, and a 128-token window),
-   timed with CUDA events beside the bound and one library call;
-3. decode parity: one full-width ``decode_step_paged`` and one K=4
+   dequantizing matmul: int8/int4 at M in {1, 8, 32, 128} over the
+   model's matmul shapes; flash attention: B=1, causal, Sq=Sk in {128,
+   256, 512}, Sq=128 against Sk=256, and a 128-token window) and again
+   at Gemma3-1B's (H=4, KV=1, D=256, contexts of 530-950 tokens, window
+   512; its projection shapes at M in {8, 32}; flash at Sq=Sk=1024);
+   quantize: ``ops.quantize_rowwise`` at M in {8, 32, 256}, K in {1152,
+   2048, 5632, 6912}, bits 8 and 4, byte-exact against the plain
+   version;
+3. decode: one full-width ``decode_step_paged`` and one K=4
    ``decode_window_paged`` from one paged cache state through the
    kernels and through the plain versions, each window position against
    the sequential decode steps it stands for, and the backend's verify
@@ -30,7 +37,21 @@ Phases, each fatal on failure:
    then cold admission through flash attention
    (``attention_impl="pallas"``) at the library boundary, prompts of
    65-256 tokens, held against the sdpa admission;
-5. a ``{"kernels": [...]}`` line, the card's line, and the last line
+5. ring: Gemma3-1B at full width cut to its five local layers (a
+   uniformly sliding stack), int4 weights, int8 pages: a ring decode
+   step and a ring verify window kernels against plain; 8 requests of
+   600-750 prompt tokens and ~200 new tokens through the ring and the
+   mask-only engine at ``spec_k`` 1 and 4 (streams held against each
+   other, the ring bound audited every step, pages recycled in place);
+   fp32 pages through the ring held against the static ``generate``;
+6. gemma3: all 26 layers of Gemma3-1B on flat tables: a decode step
+   kernels against plain and the launcher's paged engine, for int4
+   weights with int8 pages and fp32 weights with int4 pages, prompts
+   above 512 tokens; flash against sdpa admission on 4 streams;
+7. static: ``--engine static`` through the launcher at full-width
+   TinyLlama, int4 weights, held against the paged engine (fp32 pages)
+   on the same prompts;
+8. a ``{"kernels": [...]}`` line, the card's line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Kernel timings are device time from CUDA
@@ -177,13 +198,25 @@ def phase_device(torch):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-B, H, KV, D, PAGE = 8, 32, 4, 64, 16
-N_ENTRIES = 11                 # pages per slot at max_seq 176 (serve phase)
-LENGTHS = [0, 1, 33, 64, 97, 128, 150, 176]
-WINDOW = 48
+PAGE = 16
+# paged-attention cases per model: B slots of H query heads on KV heads of
+# dim D, ragged contexts with a 0 (for one query, and for a verify window
+# of WQ queries, the contexts then counting the window), a sliding window
+# for the window and ring modes, and the flat table width of the serve
+# phases.  Gemma3-1B's contexts are those of its ring and gemma3 phases
+# (prompts of 520-750 tokens, windows of 512).
+TINY = dict(model="TinyLlama-1.1B", B=8, H=32, KV=4, D=64, window=48,
+            n_flat=11,                     # pages per slot at max_seq 176
+            lengths=[0, 1, 33, 64, 97, 128, 150, 176],
+            w_lengths=[0, 4, 37, 68, 101, 132, 154, 176])
+GEMMA = dict(model="Gemma3-1B", B=8, H=4, KV=1, D=256, window=512,
+             n_flat=61,                    # pages per slot at max_seq 966
+             lengths=[0, 1, 530, 611, 687, 750, 873, 950],
+             w_lengths=[0, 4, 534, 615, 691, 754, 877, 950])
+WQ = 4                                          # verify window (--spec-k 4)
 
 
-def _pool(torch, gen, quant: str, P: int):
+def _pool(torch, gen, quant: str, P: int, KV: int, D: int):
     dev = "cuda"
     if quant == "none":
         k = torch.randn((P, PAGE, KV, D), generator=gen, device=dev)
@@ -218,10 +251,11 @@ def _visited_pages(length: int, n_entries: int, window: int, ring: bool,
     return min(last, n_entries - 1) + 1 - lo_tok // PAGE
 
 
-def attn_bound(quant, lengths, n_entries, window, ring, K=1):
+def attn_bound(shp, quant, lengths, n_entries, window, ring, K=1):
     """Least time for the paged attention of ``lengths`` (K queries per
     slot, query j at length - K + j): the live pages, q and the output
     once, against 4*D flops per (query head, valid key)."""
+    B, H, KV, D = shp["B"], shp["H"], shp["KV"], shp["D"]
     vb = {"none": 4.0, "int8": 1.0, "int4": 0.5}[quant]
     pages = sum(_visited_pages(l, n_entries, window, ring, K) for l in lengths)
     per_page = PAGE * KV * D * vb * 2 + (PAGE * KV * 4 * 2 if quant != "none" else 0)
@@ -233,57 +267,67 @@ def attn_bound(quant, lengths, n_entries, window, ring, K=1):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
-def phase_kernels_attention(torch, timer, ops, F):
-    gen = torch.Generator(device="cuda").manual_seed(1)
+def phase_kernels_paged(torch, timer, ops, F, shp, K: int = 1):
+    """The paged-attention kernel against its plain version at one model's
+    head shapes: fp32/int8/int4 pools x full/window/ring tables, one query
+    per slot (K = 1, the decode kernel) or a K-token verify window."""
+    gen = torch.Generator(device="cuda").manual_seed(1 if K == 1 else 4)
+    B, H, KV, D, W = shp["B"], shp["H"], shp["KV"], shp["D"], shp["window"]
+    lengths_l = shp["lengths"] if K == 1 else shp["w_lengths"]
+    what = "paged_attention" if K == 1 else f"paged_window K={K}"
     results = {}
     for quant in ("none", "int8", "int4"):
         for mode in ("full", "window", "ring"):
             ring = mode == "ring"
-            window = WINDOW if mode != "full" else 0
-            n_entries = (-(-WINDOW // PAGE) + 1) if ring else N_ENTRIES
+            window = W if mode != "full" else 0
+            # a ring holds the window plus the K-1 newer tokens
+            n_entries = (-(-(W + K - 1) // PAGE) + 1) if ring else shp["n_flat"]
             P = 1 + B * n_entries
-            kp, vp, ks, vs = _pool(torch, gen, quant, P)
+            kp, vp, ks, vs = _pool(torch, gen, quant, P, KV, D)
             perm = torch.randperm(P - 1, generator=gen, device="cuda") + 1
             bt = perm[:B * n_entries].reshape(B, n_entries).to(torch.int32).contiguous()
-            lengths = torch.tensor(LENGTHS, dtype=torch.int32, device="cuda")
-            q = torch.randn((B, H, D), generator=gen, device="cuda")
+            lengths = torch.tensor(lengths_l, dtype=torch.int32, device="cuda")
+            q = torch.randn((B, H, D) if K == 1 else (B, K, H, D), generator=gen,
+                            device="cuda")
             args = (q, kp, vp, bt, lengths)
             kw = dict(window=window, ring=ring, k_scale=ks, v_scale=vs)
+            qn = {"none": "fp32"}.get(quant, quant)
+            tag = f"{what} {shp['model']} [{qn},{mode}]"
             try:
                 out = ops.paged_attention(*args, **kw)
                 torch.cuda.synchronize()
             except Exception as exc:  # noqa: BLE001 - reported and fatal
-                fail(f"paged_attention kernel [{quant},{mode}]: {exc}")
+                fail(f"{tag} kernel: {exc}")
             ref = ops.paged_attention(*args, impl="plain", **kw)
             err = (out - ref).abs().max().item()
             scale = max(1.0, ref.abs().max().item())
             if not math.isfinite(err) or err / scale > ATTN_TOL:
-                fail(f"paged_attention [{quant},{mode}] max abs err {err:.3e} "
-                     f"> {ATTN_TOL} x {scale:.2f}")
+                fail(f"{tag} max abs err {err:.3e} > {ATTN_TOL} x {scale:.2f}")
             if not torch.all(out[0] == 0):
-                fail(f"paged_attention [{quant},{mode}]: length-0 slot not zero")
+                fail(f"{tag}: length-0 slot not zero")
             ms = timer(lambda: ops.paged_attention(*args, **kw))
             plain_ms = timer(lambda: ops.paged_attention(*args, impl="plain", **kw))
             # library yardstick: SDPA on K/V already gathered and dequantized
-            kfull, vfull, mask = _gathered(torch, ops, args, kw, n_entries)
-            qs = q[:, :, None, :]
+            kfull, vfull, mask = _gathered(torch, shp, args, kw, n_entries)
+            qs = q[:, :, None, :] if K == 1 else q.transpose(1, 2).contiguous()
             lib_ms = timer(lambda: F.scaled_dot_product_attention(
                 qs, kfull, vfull, attn_mask=mask))
-            bound_ms, bound_by = attn_bound(quant, LENGTHS, n_entries, window, ring)
-            qn = {"none": "fp32"}.get(quant, quant)
-            log(f"paged_attention [{qn:4s} {mode:6s}] err {err:.2e}  kernel "
-                f"{ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  "
-                f"bound {bound_ms:.5f} ms ({bound_by})")
+            bound_ms, bound_by = attn_bound(shp, quant, lengths_l, n_entries,
+                                            window, ring, K)
+            log(f"{what} {shp['model']} [{qn:4s} {mode:6s}] err {err:.2e}  "
+                f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} "
+                f"ms  bound {bound_ms:.5f} ms ({bound_by})")
             results[(qn, mode)] = dict(err=err, ms=ms, plain_ms=plain_ms,
                                        library_ms=lib_ms, bound_ms=bound_ms,
                                        bound_by=bound_by)
     return results
 
 
-def _gathered(torch, ops, args, kw, n_entries):
+def _gathered(torch, shp, args, kw, n_entries):
     """(B, H, S, D) K/V and the (B, 1, K, S) mask the plain version builds
     (K = 1 for a 3-D q), for timing SDPA alone."""
     from repro_torch.kernels import paged_attention as pa
+    B, H, KV, D = shp["B"], shp["H"], shp["KV"], shp["D"]
     q, kp, vp, bt, lengths = args
     quant, page = pa._pool_quant(kp, kw["k_scale"])
     if quant == "int4":
@@ -311,67 +355,18 @@ def _gathered(torch, ops, args, kw, n_entries):
     return k.contiguous(), v.contiguous(), valid[:, None]
 
 
-WQ = 4                                          # verify window (--spec-k 4)
-W_LENGTHS = [0, 4, 37, 68, 101, 132, 154, 176]  # contexts incl. the window
+# (Sq, Sk, window), causal, B=1: TinyLlama's prompt buckets, and Gemma3's
+# 1024-token bucket (prompts of 520-750 tokens) in full and window-512 mode
+FLASH_CASES = {
+    "TinyLlama-1.1B": [(128, 128, 0), (256, 256, 0), (512, 512, 0),
+                       (128, 256, 0), (512, 512, 128)],
+    "Gemma3-1B": [(1024, 1024, 0), (1024, 1024, 512)]}
 
 
-def phase_kernels_window(torch, timer, ops, F):
-    """The K-token verify window kernel against its plain version."""
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    results = {}
-    for quant in ("none", "int8", "int4"):
-        for mode in ("full", "window", "ring"):
-            ring = mode == "ring"
-            window = WINDOW if mode != "full" else 0
-            # a ring holds the window plus the K-1 newer tokens
-            n_entries = (-(-(WINDOW + WQ - 1) // PAGE) + 1) if ring else N_ENTRIES
-            P = 1 + B * n_entries
-            kp, vp, ks, vs = _pool(torch, gen, quant, P)
-            perm = torch.randperm(P - 1, generator=gen, device="cuda") + 1
-            bt = perm[:B * n_entries].reshape(B, n_entries).to(torch.int32).contiguous()
-            lengths = torch.tensor(W_LENGTHS, dtype=torch.int32, device="cuda")
-            q = torch.randn((B, WQ, H, D), generator=gen, device="cuda")
-            args = (q, kp, vp, bt, lengths)
-            kw = dict(window=window, ring=ring, k_scale=ks, v_scale=vs)
-            try:
-                out = ops.paged_attention(*args, **kw)
-                torch.cuda.synchronize()
-            except Exception as exc:  # noqa: BLE001 - reported and fatal
-                fail(f"paged_window kernel [{quant},{mode}]: {exc}")
-            ref = ops.paged_attention(*args, impl="plain", **kw)
-            err = (out - ref).abs().max().item()
-            scale = max(1.0, ref.abs().max().item())
-            if not math.isfinite(err) or err / scale > ATTN_TOL:
-                fail(f"paged_window [{quant},{mode}] max abs err {err:.3e} "
-                     f"> {ATTN_TOL} x {scale:.2f}")
-            if not torch.all(out[0] == 0):
-                fail(f"paged_window [{quant},{mode}]: length-0 slot not zero")
-            ms = timer(lambda: ops.paged_attention(*args, **kw))
-            plain_ms = timer(lambda: ops.paged_attention(*args, impl="plain", **kw))
-            kfull, vfull, mask = _gathered(torch, ops, args, kw, n_entries)
-            qs = q.transpose(1, 2).contiguous()                # (B, H, K, D)
-            lib_ms = timer(lambda: F.scaled_dot_product_attention(
-                qs, kfull, vfull, attn_mask=mask))
-            bound_ms, bound_by = attn_bound(quant, W_LENGTHS, n_entries,
-                                            window, ring, K=WQ)
-            qn = {"none": "fp32"}.get(quant, quant)
-            log(f"paged_window K={WQ} [{qn:4s} {mode:6s}] err {err:.2e}  kernel "
-                f"{ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  "
-                f"bound {bound_ms:.5f} ms ({bound_by})")
-            results[(qn, mode)] = dict(err=err, ms=ms, plain_ms=plain_ms,
-                                       library_ms=lib_ms, bound_ms=bound_ms,
-                                       bound_by=bound_by)
-    return results
-
-
-FLASH_CASES = [  # (Sq, Sk, window), causal, B=1
-    (128, 128, 0), (256, 256, 0), (512, 512, 0), (128, 256, 0),
-    (512, 512, 128)]
-
-
-def flash_bound(torch, mask, Sq, Sk):
+def flash_bound(shp, mask, Sq, Sk):
     """q, k, v and the output once; 4*D flops per (query head, key) pair
     the mask keeps (the causal half, the window band)."""
+    H, KV, D = shp["H"], shp["KV"], shp["D"]
     pairs = int(mask.sum().item())
     nbytes = 4 * (2 * Sq * H * D + 2 * Sk * KV * D)
     flops = 4.0 * D * H * pairs
@@ -379,12 +374,13 @@ def flash_bound(torch, mask, Sq, Sk):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
-def phase_kernels_flash(torch, timer, ops, F):
+def phase_kernels_flash(torch, timer, ops, F, shp):
     """The flash-attention kernel against its plain version."""
     from repro_torch.kernels.flash_attention import attention_mask
     gen = torch.Generator(device="cuda").manual_seed(5)
+    H, KV, D = shp["H"], shp["KV"], shp["D"]
     results = {}
-    for Sq, Sk, window in FLASH_CASES:
+    for Sq, Sk, window in FLASH_CASES[shp["model"]]:
         q = torch.randn((1, Sq, H, D), generator=gen, device="cuda")
         k = torch.randn((1, Sk, KV, D), generator=gen, device="cuda")
         v = torch.randn((1, Sk, KV, D), generator=gen, device="cuda")
@@ -416,8 +412,8 @@ def phase_kernels_flash(torch, timer, ops, F):
             gqa = {}
         lib_ms = timer(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, **gqa))
-        bound_ms, bound_by = flash_bound(torch, mask, Sq, Sk)
-        log(f"flash_attention [Sq {Sq:3d} Sk {Sk:3d} window {window:3d}] err "
+        bound_ms, bound_by = flash_bound(shp, mask, Sq, Sk)
+        log(f"flash_attention {shp['model']} [Sq {Sq:3d} Sk {Sk:3d} window {window:3d}] err "
             f"{err:.2e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa "
             f"{lib_ms:.4f} ms  bound {bound_ms:.5f} ms ({bound_by})")
         results[(Sq, Sk, window)] = dict(err=err, ms=ms, plain_ms=plain_ms,
@@ -426,9 +422,19 @@ def phase_kernels_flash(torch, timer, ops, F):
     return results
 
 
-QMM_SHAPES = [(2048, 2048), (2048, 256), (2048, 11264), (5632, 2048),
-              (2048, 32000)]
-QMM_M = (1, 8, 32, 128)          # 32 = B*K rows of a K=4 verify step
+# (K, N) of each model's matmuls, per layer in order (wq, wk, wv, wo,
+# gate/up, down), then the untied head; the M of decode (8 slots) and of a
+# K=4 verify step (32 rows), plus 1 and 128 for TinyLlama
+QMM = {
+    "TinyLlama-1.1B": dict(
+        layers=22, per_layer=[(2048, 2048), (2048, 256), (2048, 256),
+                              (2048, 2048), (2048, 11264), (5632, 2048)],
+        head=[(2048, 32000)], M=(1, 8, 32, 128)),
+    "Gemma3-1B": dict(                     # tied embeddings: no quantized head
+        layers=26, per_layer=[(1152, 1024), (1152, 256), (1152, 256),
+                              (1024, 1152), (1152, 13824), (6912, 1152)],
+        head=[], M=(8, 32)),
+}
 
 
 def qmm_bound(M, K, N, bits):
@@ -440,144 +446,233 @@ def qmm_bound(M, K, N, bits):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
-def phase_kernels_matmul(torch, timer, ops):
+def phase_kernels_matmul(torch, timer, ops, model: str):
     from repro_torch.quant.qtypes import W4_SYM_GROUP, W8_SYM_CHANNEL
     from repro_torch.quant.quantize import dequantize, quantize
     gen = torch.Generator(device="cuda").manual_seed(2)
+    cfgs = QMM[model]
+    shapes = list(dict.fromkeys(cfgs["per_layer"] + cfgs["head"]))
     results = {}
     for bits, cfg in ((8, W8_SYM_CHANNEL), (4, W4_SYM_GROUP)):
-        for K, N in QMM_SHAPES:
+        for K, N in shapes:
             w = quantize(torch.randn((K, N), generator=gen, device="cuda") * 0.02, cfg)
             wf = dequantize(w)
-            for M in QMM_M:
+            for M in cfgs["M"]:
+                tag = f"quant_matmul {model} [w{bits} M={M} {K}x{N}]"
                 x = torch.randn((M, K), generator=gen, device="cuda")
                 try:
                     out = ops.quant_matmul(x, w)
                     torch.cuda.synchronize()
                 except Exception as exc:  # noqa: BLE001 - reported and fatal
-                    fail(f"quant_matmul kernel [w{bits} M={M} {K}x{N}]: {exc}")
+                    fail(f"{tag} kernel: {exc}")
                 ref = ops.quant_matmul(x, w, impl="plain")
                 err = (out - ref).abs().max().item()
                 scale = max(1.0, ref.abs().max().item())
                 if not math.isfinite(err) or err / scale > QMM_TOL:
-                    fail(f"quant_matmul [w{bits} M={M} {K}x{N}] max abs err "
-                         f"{err:.3e} > {QMM_TOL} x {scale:.2f}")
+                    fail(f"{tag} max abs err {err:.3e} > {QMM_TOL} x {scale:.2f}")
                 ms = timer(lambda: ops.quant_matmul(x, w))
                 plain_ms = timer(lambda: ops.quant_matmul(x, w, impl="plain"))
                 lib_ms = timer(lambda: torch.matmul(x, wf))
                 bound_ms, bound_by = qmm_bound(M, K, N, bits)
-                log(f"quant_matmul [w{bits} M={M:3d} {K:5d}x{N:5d}] err {err:.2e}  "
-                    f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  matmul "
-                    f"{lib_ms:.4f} ms  bound {bound_ms:.5f} ms ({bound_by})")
+                log(f"quant_matmul {model} [w{bits} M={M:3d} {K:5d}x{N:5d}] err "
+                    f"{err:.2e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                    f"matmul {lib_ms:.4f} ms  bound {bound_ms:.5f} ms ({bound_by})")
                 results[(bits, M, K, N)] = dict(err=err, ms=ms, plain_ms=plain_ms,
                                                 library_ms=lib_ms, bound_ms=bound_ms,
                                                 bound_by=bound_by)
-    # one decode step's matmuls at M=8: six per layer plus the head
-    per_layer = [(2048, 2048), (2048, 256), (2048, 256), (2048, 2048),
-                 (2048, 11264), (5632, 2048)]
+    # one step's matmuls, summed from the cases above
+    n = cfgs["layers"] * len(cfgs["per_layer"]) + len(cfgs["head"])
     for bits in (8, 4):
         for M, what in ((8, "decode step"), (32, f"K={WQ} verify step")):
-            step = {k: 22 * sum(results[(bits, M, a, b)][k] for a, b in per_layer)
-                    + results[(bits, M, 2048, 32000)][k]
+            step = {k: cfgs["layers"] * sum(results[(bits, M, a, b)][k]
+                                            for a, b in cfgs["per_layer"])
+                    + sum(results[(bits, M, a, b)][k] for a, b in cfgs["head"])
                     for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-            log(f"quant_matmul [w{bits} M={M}] one {what} (133 launches, summed "
-                f"from the cases above): kernel {step['ms']:.3f} ms  plain "
+            log(f"quant_matmul {model} [w{bits} M={M}] one {what} ({n} launches, "
+                f"summed from the cases above): kernel {step['ms']:.3f} ms  plain "
                 f"{step['plain_ms']:.3f} ms  matmul {step['library_ms']:.3f} ms  "
                 f"bound {step['bound_ms']:.3f} ms")
     return results
+
+
+# (M, K) of the quantize cases: 8 and 32 activation rows of a decode and a
+# verify step, 256 of a prompt, over the two models' activation widths
+QUANT_M = (8, 32, 256)
+QUANT_K = (1152, 2048, 5632, 6912)
+
+
+def quantize_bound(M, K):
+    """x read once (4 B), q written once (1 B), the scales (4 B a row);
+    a few operations a value, far under the card's rate."""
+    nbytes = M * K * 4 + M * K + M * 4
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, 3.0 * M * K / FP32_FLOPS
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def phase_kernels_quantize(torch, timer, ops):
+    """Per-row quantization through its entry point ``ops.quantize_rowwise``
+    (its path: no model path calls it in either package), at the models'
+    activation shapes, bits 8 and 4.  The entry point's outputs are held
+    to the plain version's byte for byte: equal q bytes and bit-identical
+    scales.  Returns the cases and the launches of the entry-point run."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    cases = [(bits, M, K) for bits in (8, 4) for M in QUANT_M for K in QUANT_K]
+    xs = {c: torch.randn((c[1], c[2]), generator=gen, device="cuda") * 3.0
+          for c in cases}
+    ops.reset_launch_counts()
+    try:
+        outs = {c: ops.quantize_rowwise(xs[c], bits=c[0]) for c in cases}
+        torch.cuda.synchronize()
+    except Exception as exc:  # noqa: BLE001 - reported and fatal
+        fail(f"quantize_rowwise kernel: {exc}")
+    launches = ops.launch_counts()["quantize_rowwise"]
+    if launches != len(cases):
+        fail(f"quantize_rowwise: {launches} launches for {len(cases)} calls")
+    results = {}
+    for c in cases:
+        bits, M, K = c
+        x = xs[c]
+        q, sc = outs[c]
+        pq, ps = ops.quantize_rowwise(x, bits=bits, impl="plain")
+        bad_q = int((q != pq).sum())
+        bad_s = int((sc.view(torch.int32) != ps.view(torch.int32)).sum())
+        if q.dtype != torch.int8 or tuple(q.shape) != (M, K) or \
+                tuple(sc.shape) != (M, 1) or bad_q or bad_s:
+            fail(f"quantize_rowwise [int{bits} M={M} K={K}]: {bad_q} q bytes and "
+                 f"{bad_s} scales differ from the plain version")
+        err = max((q.int() - pq.int()).abs().max().item(),
+                  (sc - ps).abs().max().item())
+        ms = timer(lambda: ops.quantize_rowwise(x, bits=bits))
+        plain_ms = timer(lambda: ops.quantize_rowwise(x, bits=bits, impl="plain"))
+        bound_ms, bound_by = quantize_bound(M, K)
+        log(f"quantize_rowwise [int{bits} M={M:3d} K={K:4d}] q bytes and scales "
+            f"equal to plain (max abs err {err:.1f})  kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  library none  bound {bound_ms:.5f} ms ({bound_by})")
+        results[c] = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                          bound_ms=bound_ms, bound_by=bound_by)
+    return results, launches
 
 
 # ---------------------------------------------------------------------------
 # phase 3: full-width decode step, kernels vs plain
 # ---------------------------------------------------------------------------
 
-def _model(precision: str):
+def _spec(arch: str = ARCH, layers: int = 0):
+    """A model's spec at full width, its depth cut to ``layers`` if set."""
     from repro_torch.configs import ARCHS
+    spec = ARCHS[arch]
+    return spec.with_(num_layers=layers) if layers else spec
+
+
+def _model(precision: str, spec=None):
     from repro_torch.models import lm
     from repro_torch.quant.qlinear import quantize_params
-    spec = ARCHS[ARCH]
+    spec = spec or _spec()
     params = lm.init(0, spec, device="cuda")
     if precision != "fp32":
         params = quantize_params(params, precision)
     return spec, params
 
 
-def _admitted_backend(torch, precision: str, cache_dtype: str):
-    """A full-width backend with 8 slots cold-admitted (prompts of 32-128
-    tokens, one spare page each) and their first tokens (8, 1)."""
+def _admitted_backend(torch, precision: str, cache_dtype: str, spec=None,
+                      plens=(32, 129), entries: int = 11, spec_k: int = 1,
+                      windowed_kv=None):
+    """A full-width backend with 8 slots cold-admitted (prompts of
+    ``plens`` tokens) and their first tokens (8, 1).  Flat tables of
+    ``entries`` pages hold the prompt and one spare page; a uniformly
+    sliding stack gets ring tables of ``ring_pages(window, 16, spec_k)``
+    entries instead, every entry its own page."""
     import numpy as np
     from repro_torch.serve.backend import SingleDeviceBackend
     from repro_torch.serve.scheduler import SchedulerConfig
-    spec, params = _model(precision)
-    cfg = SchedulerConfig(max_slots=8, page_size=16, max_seq=176,
-                          num_pages=1 + 8 * 11, cache_dtype=cache_dtype)
+    spec, params = _model(precision, spec)
+    cfg = SchedulerConfig(max_slots=8, page_size=16, max_seq=16 * entries,
+                          num_pages=1 + 8 * entries, cache_dtype=cache_dtype,
+                          spec_k=spec_k, windowed_kv=windowed_kv)
     be = SingleDeviceBackend(params, spec, cfg, device="cuda")
+    R = be.cache["block_tables"].shape[1]
     rng = np.random.default_rng(3)
     first = []
     for slot in range(8):
-        plen = int(rng.integers(32, 129))
+        plen = int(rng.integers(*plens))
         n_pages = -(-plen // 16)
         bucket = 16
         while bucket < plen:
             bucket *= 2
+        if not be.ring:
+            bucket = min(bucket, 16 * R)
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :plen] = rng.integers(0, spec.vocab_size, size=plen)
-        row = np.zeros((11,), np.int32)
-        row[:n_pages + 1] = 1 + slot * 11 + np.arange(n_pages + 1)
+        row = np.zeros((R,), np.int32)
+        n = R if be.ring else n_pages + 1
+        row[:n] = 1 + slot * R + np.arange(n)
         first.append(be.admit_full(padded, slot, plen, row))
     tokens = torch.tensor(first, dtype=torch.int64, device="cuda")[:, None]
     return be, spec, tokens
 
 
-def phase_decode_parity(torch, precision: str, cache_dtype: str):
+def _tag(be, spec, precision, cache_dtype):
+    table = f"ring of {be.cache['block_tables'].shape[1]}" if be.ring else "flat"
+    return (f"[{spec.name} {spec.num_layers} layers, {precision} weights, "
+            f"{cache_dtype} pages, {table} tables]")
+
+
+def phase_decode_parity(torch, precision: str, cache_dtype: str, **admit):
+    """One full-width decode step from one paged cache state through the
+    kernels against the plain versions (``admit``: the model and its
+    tables, see ``_admitted_backend``); then the step's host wall time."""
     from repro_torch.models import lm
-    be, spec, tokens = _admitted_backend(torch, precision, cache_dtype)
+    be, spec, tokens = _admitted_backend(torch, precision, cache_dtype, **admit)
+    tag = _tag(be, spec, precision, cache_dtype)
     cache_k = copy.deepcopy(be.cache)
     cache_p = copy.deepcopy(be.cache)
     with torch.no_grad():
-        lk, _ = lm.decode_step_paged(be.params, spec, cache_k, tokens)
+        lk, _ = lm.decode_step_paged(be.params, spec, cache_k, tokens,
+                                     ring=be.ring)
         lp, _ = lm.decode_step_paged(be.params, spec, cache_p, tokens,
-                                     impl="plain")
+                                     ring=be.ring, impl="plain")
     torch.cuda.synchronize()
     if tuple(lk.shape) != (8, 1, spec.padded_vocab) or not torch.all(torch.isfinite(lk)):
-        fail(f"decode logits [{precision}/{cache_dtype}]: shape {tuple(lk.shape)} "
-             "or non-finite values")
+        fail(f"decode logits {tag}: shape {tuple(lk.shape)} or non-finite values")
     err = (lk - lp).abs().max().item()
     scale = max(1.0, lp.abs().max().item())
     tol = DECODE_TOL[cache_dtype if cache_dtype != "fp32" else "int8"]
     match = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
-    log(f"decode parity [{precision} weights, {cache_dtype} pages]: max abs err "
-        f"{err:.3e} (logit scale {scale:.3f}, tol {tol} x scale), argmax match "
-        f"{match:.3f} (information only)")
+    log(f"decode parity {tag}: kernels vs plain max abs err {err:.3e} (logit "
+        f"scale {scale:.3f}, tol {tol} x scale), argmax match {match:.3f} "
+        "(information only)")
     if not math.isfinite(err) or err / scale > tol:
-        fail(f"decode parity [{precision}/{cache_dtype}] {err:.3e} > {tol} x {scale:.3f}")
+        fail(f"decode parity {tag} {err:.3e} > {tol} x {scale:.3f}")
     # host wall time of a full-width decode step (8 slots) through the
     # kernels, after the step above warmed everything up
     n = 5
     t0 = time.perf_counter()
     with torch.no_grad():
         for _ in range(n):
-            lm.decode_step_paged(be.params, spec, cache_k, tokens)
+            lm.decode_step_paged(be.params, spec, cache_k, tokens, ring=be.ring)
     torch.cuda.synchronize()
-    log(f"decode step wall [{precision} weights, {cache_dtype} pages]: "
+    log(f"decode step wall {tag}: "
         f"{(time.perf_counter() - t0) * 1e3 / n:.2f} ms per step (host clock, "
         f"mean of {n}, 8 slots)")
     del be, cache_k, cache_p
     torch.cuda.empty_cache()
 
 
-def phase_window_parity(torch, precision: str, cache_dtype: str):
+def phase_window_parity(torch, precision: str, cache_dtype: str, **admit):
     """One K=4 verify window at full width from one cache state, through
     the kernels against the plain versions (ragged lens); then a window
     of greedy tokens against the K sequential decode steps it replaces,
     and the backend's fused verify step fed those greedy drafts, which
-    must accept them on the device."""
+    must accept them on the device.  ``admit`` as in
+    ``phase_decode_parity`` (a ring backend is sized for ``spec_k=4``)."""
     import numpy as np
     from repro_torch.models import lm
-    be, spec, tokens = _admitted_backend(torch, precision, cache_dtype)
+    be, spec, tokens = _admitted_backend(torch, precision, cache_dtype,
+                                         spec_k=WQ, **admit)
+    ring = be.ring
     cache0 = copy.deepcopy(be.cache)
     tol = DECODE_TOL[cache_dtype if cache_dtype != "fp32" else "int8"]
-    tag = f"[{precision} weights, {cache_dtype} pages]"
+    tag = _tag(be, spec, precision, cache_dtype)
     rng = np.random.default_rng(5)
     drafts = torch.tensor(rng.integers(0, spec.vocab_size, size=(8, WQ - 1)),
                           dtype=torch.int64, device="cuda")
@@ -586,9 +681,10 @@ def phase_window_parity(torch, precision: str, cache_dtype: str):
     cache_k = copy.deepcopy(be.cache)
     cache_p = copy.deepcopy(be.cache)
     with torch.no_grad():
-        lk, _ = lm.decode_window_paged(be.params, spec, cache_k, window, lens)
+        lk, _ = lm.decode_window_paged(be.params, spec, cache_k, window, lens,
+                                       ring=ring)
         lp, _ = lm.decode_window_paged(be.params, spec, cache_p, window, lens,
-                                       impl="plain")
+                                       ring=ring, impl="plain")
     torch.cuda.synchronize()
     if tuple(lk.shape) != (8, WQ, spec.padded_vocab) or not torch.all(torch.isfinite(lk)):
         fail(f"window logits {tag}: shape {tuple(lk.shape)} or non-finite values")
@@ -606,12 +702,14 @@ def phase_window_parity(torch, precision: str, cache_dtype: str):
     toks, seq_logits = [tokens], []
     with torch.no_grad():
         for _ in range(WQ):
-            l, seq = lm.decode_step_paged(be.params, spec, seq, toks[-1])
+            l, seq = lm.decode_step_paged(be.params, spec, seq, toks[-1],
+                                          ring=ring)
             seq_logits.append(l[:, 0])
             toks.append(l[:, 0].argmax(-1)[:, None])
         full = torch.full((8,), WQ, dtype=torch.int32, device="cuda")
         wl, _ = lm.decode_window_paged(be.params, spec, win,
-                                       torch.cat(toks[:WQ], dim=1), full)
+                                       torch.cat(toks[:WQ], dim=1), full,
+                                       ring=ring)
     torch.cuda.synchronize()
     for j in range(WQ):
         e = (wl[:, j] - seq_logits[j]).abs().max().item()
@@ -670,33 +768,22 @@ def device_busy_ms(torch, fn, n: int = 3):
     return us / 1e3 / n if us > 0 else None
 
 
-def phase_step_profile(torch, precision: str, cache_dtype: str):
-    """Host wall time and device busy time of one backend decode call at
-    full width, 8 slots: a K=1 step against a K=4 verify step (random
-    drafts).  On a host shared with other work the host-side time can
-    drift by 2x within one run, so the two are timed in turns (median
-    of 6 each).  Information only."""
+def _profile_in_turns(torch, cases, tag):
+    """Host wall time and device busy time of backend decode calls,
+    ``cases``: name -> (backend, cache state to start from, decode
+    arguments).  On a host shared with other work the host-side time can
+    drift by 2x within one run, so the cases are timed in turns (median
+    of 6 each, after one round of warm-up).  Information only."""
     import numpy as np
-    be, spec, tokens = _admitted_backend(torch, precision, cache_dtype)
-    cache0 = copy.deepcopy(be.cache)
-    tag = f"[{precision} weights, {cache_dtype} pages]"
-    tok1 = tokens.cpu().numpy().astype(np.int32)
-    rng = np.random.default_rng(9)
-    window = np.concatenate(
-        [tok1, rng.integers(0, spec.vocab_size, size=(8, WQ - 1))], axis=1
-    ).astype(np.int32)
-    act = np.ones(8, np.int32)
-    cases = {"K=1 decode step": (tok1, act),
-             f"K={WQ} verify step": (window, act, np.full(8, WQ, np.int32))}
     walls = {name: [] for name in cases}
     for _ in range(7):                 # the first round warms up
-        for name, args in cases.items():
+        for name, (be, cache0, args) in cases.items():
             be.cache = copy.deepcopy(cache0)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             be.decode(*args)           # ends in a device-to-host copy
             walls[name].append((time.perf_counter() - t0) * 1e3)
-    for name, args in cases.items():
+    for name, (be, cache0, args) in cases.items():
         wall = float(np.median(walls[name][1:]))
         be.cache = copy.deepcopy(cache0)
         try:
@@ -710,7 +797,45 @@ def phase_step_profile(torch, precision: str, cache_dtype: str):
         log(f"{name} {tag}: wall median {wall:.2f} ms of "
             f"{[round(w, 1) for w in walls[name][1:]]} (host clock, in turns), "
             f"{dev}")
+
+
+def phase_step_profile(torch, precision: str, cache_dtype: str, **admit):
+    """A K=1 step against a K=4 verify step (random drafts) on one
+    full-width backend with 8 slots (``admit`` as in
+    ``phase_decode_parity``), timed in turns.  Information only."""
+    import numpy as np
+    be, spec, tokens = _admitted_backend(torch, precision, cache_dtype,
+                                         spec_k=WQ, **admit)
+    cache0 = copy.deepcopy(be.cache)
+    tok1 = tokens.cpu().numpy().astype(np.int32)
+    rng = np.random.default_rng(9)
+    window = np.concatenate(
+        [tok1, rng.integers(0, spec.vocab_size, size=(8, WQ - 1))], axis=1
+    ).astype(np.int32)
+    act = np.ones(8, np.int32)
+    _profile_in_turns(torch, {
+        "K=1 decode step": (be, cache0, (tok1, act)),
+        f"K={WQ} verify step": (be, cache0, (window, act, np.full(8, WQ, np.int32)))},
+        _tag(be, spec, precision, cache_dtype))
     del be, cache0
+    torch.cuda.empty_cache()
+
+
+def phase_ring_step_profile(torch, precision: str, cache_dtype: str, spec):
+    """A K=1 step on ring tables against the same step on the mask-only
+    engine's flat tables, from the same 8 admitted prompts of 600-750
+    tokens, timed in turns.  Information only."""
+    import numpy as np
+    cases = {}
+    for what, wkv, entries in (("ring", None, 34), ("mask-only", False, 64)):
+        be, spec, tokens = _admitted_backend(
+            torch, precision, cache_dtype, spec=spec, plens=(600, 751),
+            entries=entries, windowed_kv=wkv)
+        cases[f"K=1 decode step, {what} {_tag(be, spec, precision, cache_dtype)}"] = (
+            be, copy.deepcopy(be.cache),
+            (tokens.cpu().numpy().astype(np.int32), np.ones(8, np.int32)))
+    _profile_in_turns(torch, cases, "(ring phase)")
+    del cases
     torch.cuda.empty_cache()
 
 
@@ -834,50 +959,55 @@ def compare_streams(a, b, what: str) -> None:
         fail(f"{what}: streams diverge below the 0.9 matching-prefix band")
 
 
-def phase_serve_flash(torch, ops, precision: str, cache_dtype: str):
+def phase_serve_flash(torch, ops, precision: str, cache_dtype: str,
+                      spec=None, lens=(65, 256, 130, 97, 200, 180),
+                      one=(200, 256), new: int = 16):
     """Cold admission through the flash kernel at the library boundary:
     ``ContinuousBatchingEngine(params, spec, SchedulerConfig(...,
-    attention_impl="pallas"))``, 6 prompts of 65-256 tokens (they bucket
-    to 128 or 256 tokens), 16 new tokens each; streams held against the
-    sdpa admission of the same requests.  First, one full-width prompt's
-    logits through flash against sdpa."""
+    attention_impl="pallas"))``, prompts of ``lens`` tokens (TinyLlama:
+    65-256, bucketed to 128 or 256), ``new`` new tokens each; streams
+    held against the sdpa admission of the same requests.  First, one
+    full-width prompt's logits through flash against sdpa (``one``: its
+    true and padded length)."""
     import numpy as np
     from repro_torch.models import lm
     from repro_torch.serve.backend import SingleDeviceBackend
     from repro_torch.serve.scheduler import (ContinuousBatchingEngine,
                                              Request, SchedulerConfig)
-    spec, params = _model(precision)
-    tag = f"[{precision} weights, {cache_dtype} pages]"
+    spec, params = _model(precision, spec)
+    tag = f"[{spec.name} {spec.num_layers} layers, {precision} weights, {cache_dtype} pages]"
     rng = np.random.default_rng(6)
-    prompt = torch.zeros((1, 256), dtype=torch.int64, device="cuda")
-    prompt[0, :200] = torch.as_tensor(rng.integers(0, spec.vocab_size, 200))
+    true_len, padded = one
+    prompt = torch.zeros((1, padded), dtype=torch.int64, device="cuda")
+    prompt[0, :true_len] = torch.as_tensor(rng.integers(0, spec.vocab_size, true_len))
     with torch.no_grad():
         lf, _ = lm.prefill(params, spec, {"tokens": prompt}, impl="pallas",
-                           true_len=200)
+                           true_len=true_len)
         ln, _ = lm.prefill(params, spec, {"tokens": prompt}, impl="naive",
-                           true_len=200)
+                           true_len=true_len)
     torch.cuda.synchronize()
     err = (lf - ln).abs().max().item()
     scale = max(1.0, ln.abs().max().item())
-    log(f"prefill parity {tag}: flash vs sdpa, 200 of 256 tokens, max abs err "
-        f"{err:.3e} (logit scale {scale:.3f}, tol {PREFILL_TOL} x scale), argmax "
-        f"equal {bool(lf.argmax() == ln.argmax())}")
+    log(f"prefill parity {tag}: flash vs sdpa, {true_len} of {padded} tokens, max "
+        f"abs err {err:.3e} (logit scale {scale:.3f}, tol {PREFILL_TOL} x scale), "
+        f"argmax equal {bool(lf.argmax() == ln.argmax())}")
     if not math.isfinite(err) or err / scale > PREFILL_TOL:
         fail(f"prefill parity {tag}: {err:.3e} > {PREFILL_TOL} x {scale:.3f}")
-    lens = [65, 256, 130, 97, 200, 180]
+    del lf, ln
     prompts = [rng.integers(0, spec.vocab_size, size=n).astype(np.int32)
                for n in lens]
+    max_seq = -(-(max(lens) + new) // 16) * 16 + 16
     runs = {}
     for impl in ("pallas", "naive"):
-        cfg = SchedulerConfig(max_slots=4, page_size=16, max_seq=288,
-                              kv_budget_bytes=64e6, cache_dtype=cache_dtype,
-                              attention_impl=impl)
+        cfg = SchedulerConfig(max_slots=4, page_size=16, max_seq=max_seq,
+                              num_pages=1 + 4 * (max_seq // 16),
+                              cache_dtype=cache_dtype, attention_impl=impl)
         be = SingleDeviceBackend(params, spec, cfg, device="cuda")
         eng = ContinuousBatchingEngine(params, spec, cfg, backend=be)
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         try:
-            done = eng.run([Request(i, p.copy(), 16) for i, p in enumerate(prompts)])
+            done = eng.run([Request(i, p.copy(), new) for i, p in enumerate(prompts)])
             torch.cuda.synchronize()
         except Exception as exc:  # noqa: BLE001 - reported and fatal
             fail(f"serve flash {tag} attention_impl={impl}: {exc!r}")
@@ -885,7 +1015,7 @@ def phase_serve_flash(torch, ops, precision: str, cache_dtype: str):
         counts = ops.launch_counts()
         eng.alloc.check()
         if len(done) != len(prompts) or any(
-                c.status != "ok" or len(c.tokens) != 16 for c in done):
+                c.status != "ok" or len(c.tokens) != new for c in done):
             fail(f"serve flash {tag} attention_impl={impl}: bad completions")
         want = spec.num_layers * be.cold_admissions if impl == "pallas" else 0
         if counts["flash_attention"] != want or be.cold_admissions < len(prompts):
@@ -905,6 +1035,259 @@ def phase_serve_flash(torch, ops, precision: str, cache_dtype: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: ring-paged serving of Gemma3-1B's local layers
+# ---------------------------------------------------------------------------
+
+RING_LAYERS = 5          # Gemma3-1B's first five layers are all attn_local
+
+
+def _drive(torch, ops, spec, params, cfg, reqs, tag):
+    """Run an engine over ``reqs`` step by step with the launch counts
+    reset just before and read just after; fatal unless every request
+    completes with its token count.  Returns the streams, the counts,
+    the engine, its backend, the most pages any slot held after a step,
+    and the seconds (host clock)."""
+    from repro_torch.serve.backend import SingleDeviceBackend
+    from repro_torch.serve.scheduler import ContinuousBatchingEngine
+    be = SingleDeviceBackend(params, spec, cfg, device="cuda")
+    eng = ContinuousBatchingEngine(params, spec, cfg, backend=be)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    held = 0
+    try:
+        for r in reqs:
+            eng.submit(r)
+        done = []
+        while eng.queue or eng.num_active:
+            done.extend(eng.step())
+            held = max([held] + [len(sl.pages) for sl in eng.slots if sl is not None])
+        torch.cuda.synchronize()
+    except Exception as exc:  # noqa: BLE001 - reported and fatal
+        fail(f"{tag}: {exc!r}")
+    dt = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    eng.alloc.check()
+    done = sorted(done, key=lambda c: c.uid)
+    want = {r.uid: r.max_new_tokens for r in reqs}
+    bad = [c.uid for c in done if c.status != "ok" or len(c.tokens) != want[c.uid]]
+    if len(done) != len(reqs) or bad:
+        fail(f"{tag}: {len(done)} completions, bad {bad}")
+    if any(int(t) < 0 or int(t) >= spec.padded_vocab for c in done for t in c.tokens):
+        fail(f"{tag}: token id out of range")
+    return [c.tokens for c in done], counts, eng, be, held, dt
+
+
+def phase_ring(torch, ops):
+    """``gemma3-1b`` at full width with its depth cut to its five local
+    layers (the one uniformly sliding stack of full width in the repo),
+    int4 weights, int8 pages of 16 tokens, 8 requests of 600-750 prompt
+    tokens and 190-210 new tokens each, so every slot wraps its ring of
+    ``ring_pages(512, 16, spec_k)`` entries.  ``spec_k`` 1 and 4, each
+    through the ring and through the mask-only engine
+    (``windowed_kv=False``), whose streams the ring's must match; then
+    fp32 pages through the ring against the static ``generate`` of the
+    same prompts.  ``debug_invariants`` audits the ring bound after every
+    step.  Before the serve runs: one ring decode step and one ring verify
+    window, kernels against plain."""
+    import numpy as np
+    from repro_torch.serve import paged_cache as pc
+    from repro_torch.serve.engine import ServeConfig, generate
+    from repro_torch.serve.scheduler import Request, SchedulerConfig
+    spec = _spec("gemma3-1b", RING_LAYERS)
+    if set(spec.layer_kinds()) != {"attn_local"}:
+        fail(f"ring: {spec.name} at {RING_LAYERS} layers is not uniformly local")
+    admit = dict(spec=spec, plens=(600, 751), entries=34)
+    phase_decode_parity(torch, "int4", "int8", **admit)
+    phase_window_parity(torch, "int4", "int8", **admit)
+    phase_ring_step_profile(torch, "int4", "int8", spec)
+    W = spec.sliding_window
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, spec.vocab_size, size=int(n)).astype(np.int32)
+               for n in rng.integers(600, 751, size=8)]
+    new = [int(n) for n in rng.integers(190, 211, size=8)]
+    max_seq = -(-(750 + 210) // 16) * 16 + 16
+    launches = {}
+    streams = {}
+    for precision, cache_dtype, spec_k, wkv in (
+            ("int4", "int8", 1, None), ("int4", "int8", 1, False),
+            ("int4", "int8", WQ, None), ("int4", "int8", WQ, False),
+            ("fp32", "fp32", 1, None)):
+        _, params = _model(precision, spec)
+        cfg = SchedulerConfig(max_slots=8, page_size=16, max_seq=max_seq,
+                              num_pages=1 + 8 * (max_seq // 16),
+                              cache_dtype=cache_dtype, spec_k=spec_k,
+                              windowed_kv=wkv, debug_invariants=True)
+        kind = "ring" if wkv is None else "mask-only"
+        tag = (f"ring phase [{spec.name} {RING_LAYERS} layers, {precision} "
+               f"weights, {cache_dtype} pages, spec_k={spec_k}, {kind}]")
+        out, counts, eng, be, held, dt = _drive(
+            torch, ops, spec, params, cfg,
+            [Request(i, p.copy(), n) for i, (p, n) in enumerate(zip(prompts, new))],
+            tag)
+        st = eng.stats
+        R = pc.ring_pages(W, 16, spec_k)
+        width = be.cache["block_tables"].shape[1]
+        if wkv is None and not (eng.ring and eng.window == W and width == R
+                                and held <= R and st["ring_recycled_pages"] > 0):
+            fail(f"{tag}: ring {eng.ring}, window {eng.window}, {width} entries "
+                 f"(ring_pages {R}), {held} pages held, "
+                 f"{int(st['ring_recycled_pages'])} recycled")
+        if wkv is False and (eng.ring or st["ring_recycled_pages"]):
+            fail(f"{tag}: the mask-only engine ran a ring")
+        attn, other = (("paged_attention", "paged_window") if spec_k == 1
+                       else ("paged_window", "paged_attention"))
+        if counts[attn] != RING_LAYERS * be.decode_steps or counts[attn] == 0 \
+                or counts[other]:
+            fail(f"{tag}: {attn} launches {counts[attn]} != {RING_LAYERS} x "
+                 f"{be.decode_steps} decode steps, or {other} launched "
+                 f"{counts[other]} times")
+        if precision == "int4" and counts["quant_matmul"] == 0:
+            fail(f"{tag}: the dequantizing matmul never launched")
+        tok = sum(len(t) for t in out)
+        log(f"{tag}: {tok} tokens in {dt:.3f} s = {tok / dt:.1f} tok/s; "
+            f"{be.decode_steps} decode steps ({dt * 1e3 / be.decode_steps:.2f} ms "
+            f"per step, host clock, admissions included); tables {width} entries "
+            f"(ring_pages {R}), most pages held by a slot {held}, recycled in "
+            f"place {int(st['ring_recycled_pages'])}, shared released "
+            f"{int(st['ring_shared_released'])}, preemptions "
+            f"{int(st['preemptions'])}; spec windows {int(st['spec_steps'])}; "
+            f"launches {counts}")
+        streams[precision, spec_k, kind] = out
+        if kind == "ring":
+            for k in counts:
+                launches[k] = launches.get(k, 0) + counts[k]
+        del eng, be, params
+        torch.cuda.empty_cache()
+    for spec_k in (1, WQ):
+        compare_streams(streams["int4", spec_k, "ring"],
+                        streams["int4", spec_k, "mask-only"],
+                        f"ring phase spec_k={spec_k}: ring vs mask-only engine")
+    # the static engine's contiguous f32 cache against fp32 ring pages
+    _, params = _model("fp32", spec)
+    t0 = time.perf_counter()
+    static = []
+    for p, n in zip(prompts, new):
+        out = generate(params, spec, {"tokens": torch.as_tensor(
+            p[None], dtype=torch.int64, device="cuda")}, n - 1,
+            ServeConfig(max_seq=len(p) + n, attention_impl="naive"))
+        static.append(out["tokens"][0].cpu().numpy())
+    log(f"ring phase: static generate of the 8 requests, one at a time, "
+        f"{time.perf_counter() - t0:.3f} s (host clock)")
+    compare_streams(streams["fp32", 1, "ring"], static,
+                    "ring phase fp32 pages: ring engine vs static generate")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6: Gemma3-1B at full depth on flat tables
+# ---------------------------------------------------------------------------
+
+def phase_gemma3(torch, ops):
+    """All 26 layers of ``gemma3-1b`` (21 local layers masking a 512-token
+    window, 5 global; head_dim 256, one KV head, tied 262144-token
+    embeddings) on flat tables: one decode step kernels against plain
+    for int4 weights with int8 pages and fp32 weights with int4 pages,
+    prompts of 520-750 tokens; the launcher serving 8 requests of 520-600
+    prompt tokens for both; flash against sdpa admission on 4 streams
+    (int4 weights, fp32 pages)."""
+    from repro_torch.launch import serve
+    spec = _spec("gemma3-1b")
+    phase_step_profile(torch, "int4", "int8", spec=spec, plens=(520, 751),
+                       entries=64)
+    launches = {}
+    for precision, cache_dtype in (("int4", "int8"), ("fp32", "int4")):
+        phase_decode_parity(torch, precision, cache_dtype, spec=spec,
+                            plens=(520, 751), entries=64)
+        argv = ["--engine", "paged", "--arch", "gemma3-1b", "--precision",
+                precision, "--cache-dtype", cache_dtype, "--batch", "8",
+                "--prompt-len", "600", "--min-prompt-len", "520", "--steps", "24",
+                "--device", "cuda"]
+        tag = f"gemma3 serve [{precision} weights, {cache_dtype} pages]"
+        ops.reset_launch_counts()
+        try:
+            res = serve.main(argv)
+            torch.cuda.synchronize()
+        except Exception as exc:  # noqa: BLE001 - reported and fatal
+            fail(f"{tag}: {exc!r}")
+        counts = ops.launch_counts()
+        eng, done = res["engine"], res["completions"]
+        eng.alloc.check()
+        if eng.ring or eng.spec.num_layers != spec.num_layers:
+            fail(f"{tag}: expected flat tables over {spec.num_layers} layers")
+        bad = [c.uid for c in done if c.status != "ok" or len(c.tokens) != 24]
+        if len(done) != 8 or bad:
+            fail(f"{tag}: {len(done)} completions, bad {bad}")
+        steps = res["decode_steps"]
+        if counts["paged_attention"] != spec.num_layers * steps or steps == 0:
+            fail(f"{tag}: paged_attention launches {counts['paged_attention']} "
+                 f"!= {spec.num_layers} x {steps} decode steps")
+        if (precision == "int4") != (counts["quant_matmul"] > 0):
+            fail(f"{tag}: quant_matmul launches {counts['quant_matmul']}")
+        log(f"{tag}: {res['tokens']} tokens in {res['seconds']:.3f} s = "
+            f"{res['tokens_per_s']:.1f} tok/s; {steps} decode steps "
+            f"({res['seconds'] * 1e3 / steps:.2f} ms per step, host clock, "
+            f"admissions included); preemptions "
+            f"{int(eng.stats['preemptions'])}; launches {counts}")
+        for k in counts:
+            launches[k] = launches.get(k, 0) + counts[k]
+        del res, eng, done
+        torch.cuda.empty_cache()
+    # fp32 pages: the comparison is of the two admissions' attention, and
+    # int8 pages would round their last-bit differences into whole code
+    # steps of the cached K/V, which a greedy near-tie then turns into
+    # different streams
+    counts = phase_serve_flash(torch, ops, "int4", "fp32", spec=spec,
+                               lens=(530, 750, 612, 688), one=(700, 1024), new=8)
+    for k in counts:
+        launches[k] = launches.get(k, 0) + counts[k]
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the static engine through the launcher
+# ---------------------------------------------------------------------------
+
+def phase_static(torch, ops):
+    """``--engine static`` at full-width TinyLlama, int4 weights: 8
+    prompts of 128 tokens, 32 decode steps through the contiguous cache.
+    Its greedy streams are held against the paged engine's (fp32 pages,
+    same weights) on the same prompts."""
+    from repro_torch.launch import serve
+    from repro_torch.serve.scheduler import Request, SchedulerConfig
+    tag = "static [TinyLlama-1.1B, int4 weights]"
+    ops.reset_launch_counts()
+    try:
+        res = serve.main(["--engine", "static", "--arch", ARCH, "--precision",
+                          "int4", "--batch", "8", "--prompt-len", "128",
+                          "--steps", "32", "--device", "cuda"])
+        torch.cuda.synchronize()
+    except Exception as exc:  # noqa: BLE001 - reported and fatal
+        fail(f"{tag}: {exc!r}")
+    counts = ops.launch_counts()
+    tokens, prompts = res["tokens"], res["prompts"]
+    spec, params = _model("int4")
+    if tokens.shape != (8, 33) or tokens.min() < 0 or tokens.max() >= spec.padded_vocab:
+        fail(f"{tag}: tokens {tokens.shape} out of shape or range")
+    if counts["quant_matmul"] == 0 or counts["paged_attention"] or counts["flash_attention"]:
+        fail(f"{tag}: launches {counts} (the dequantizing matmul only)")
+    log(f"{tag}: {res['tokens_per_s']:.1f} tok/s ({res['seconds']:.3f} s, host "
+        f"clock); launches {counts}")
+    cfg = SchedulerConfig(max_slots=8, page_size=16, max_seq=128 + 33 + 16,
+                          kv_budget_bytes=64e6, cache_dtype="fp32")
+    paged, _, _, _, _, _ = _drive(
+        torch, ops, spec, params, cfg,
+        [Request(i, p.copy(), 33) for i, p in enumerate(prompts)],
+        "static phase: paged engine, fp32 pages")
+    compare_streams(list(tokens), paged,
+                    f"{tag}: static engine vs paged engine (fp32 pages)")
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv):
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -916,26 +1299,44 @@ def main(argv):
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a CUDA card")
     phases = set(argv[0].split(",")) if argv else {
-        "kernels", "decode", "serve"}
+        "kernels", "quantize", "decode", "serve", "ring", "gemma3", "static"}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import ops
     name, smi = phase_device(torch)
     timer = Timer(torch)
-    attn = qmm = win = flash = None
+    launches = {"paged_attention": 0, "paged_window": 0, "quant_matmul": 0,
+                "flash_attention": 0, "quantize_rowwise": 0}
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts.get(k, 0)
+
+    cases = {}
     if "kernels" in phases:
-        attn = phase_kernels_attention(torch, timer, ops, F)
-        qmm = phase_kernels_matmul(torch, timer, ops)
-        win = phase_kernels_window(torch, timer, ops, F)
-        flash = phase_kernels_flash(torch, timer, ops, F)
+        cases["paged_attention"] = phase_kernels_paged(torch, timer, ops, F, TINY)[
+            ("int8", "full")]
+        cases["quant_matmul"] = phase_kernels_matmul(torch, timer, ops, TINY["model"])[
+            (4, 8, 2048, 11264)]
+        cases["paged_window"] = phase_kernels_paged(torch, timer, ops, F, TINY, K=WQ)[
+            ("int8", "full")]
+        cases["flash_attention"] = phase_kernels_flash(torch, timer, ops, F, TINY)[
+            (256, 256, 0)]
+        # the same kernels at Gemma3-1B's head and matmul shapes
+        phase_kernels_paged(torch, timer, ops, F, GEMMA)
+        phase_kernels_paged(torch, timer, ops, F, GEMMA, K=WQ)
+        phase_kernels_flash(torch, timer, ops, F, GEMMA)
+        phase_kernels_matmul(torch, timer, ops, GEMMA["model"])
+    if "quantize" in phases:
+        quant, n = phase_kernels_quantize(torch, timer, ops)
+        cases["quantize_rowwise"] = quant[(8, 8, 2048)]
+        launches["quantize_rowwise"] += n
     if "decode" in phases:
         phase_decode_parity(torch, "int4", "int8")
         phase_decode_parity(torch, "fp32", "int4")
         phase_window_parity(torch, "int4", "int8")
         phase_window_parity(torch, "fp32", "int4")
         phase_step_profile(torch, "int4", "int8")
-    launches = {"paged_attention": 0, "paged_window": 0, "quant_matmul": 0,
-                "flash_attention": 0}
     if "serve" in phases:
         streams = {}
         for precision, cache_dtype, spec_k in (("int4", "int8", 1),
@@ -943,46 +1344,34 @@ def main(argv):
                                                ("int4", "int8", WQ)):
             counts, _, streams[spec_k, precision] = phase_serve(
                 torch, ops, precision, cache_dtype, spec_k)
-            for k in launches:
-                launches[k] += counts[k]
+            add(counts)
         compare_streams(streams[WQ, "int4"], streams[1, "int4"],
                         f"serve [int4 weights, int8 pages]: spec_k={WQ} vs spec_k=1")
         for phase in (phase_serve_spec_repeating, phase_serve_flash):
-            counts = phase(torch, ops, "int4", "int8")
-            for k in launches:
-                launches[k] += counts[k]
-    kernels = []
-    if attn is not None:
-        a = attn[("int8", "full")]
-        m = qmm[(4, 8, 2048, 11264)]
-        w = win[("int8", "full")]
-        f = flash[(256, 256, 0)]
-        kernels = [
-            {"name": "paged_attention", "route": "cuda",
-             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-             "replaces": "src/repro/kernels/paged_attention.py:122",
-             "launches": launches["paged_attention"], "max_abs_err": a["err"],
-             "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
-             "bound_by": a["bound_by"], "library_ms": a["library_ms"]},
-            {"name": "quant_matmul", "route": "cuda",
-             "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
-             "replaces": "src/repro/kernels/quant_matmul.py:45",
-             "launches": launches["quant_matmul"], "max_abs_err": m["err"],
-             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-             "bound_by": m["bound_by"], "library_ms": m["library_ms"]},
-            {"name": "paged_window", "route": "cuda",
-             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-             "replaces": "src/repro/kernels/paged_attention.py:172",
-             "launches": launches["paged_window"], "max_abs_err": w["err"],
-             "ms": w["ms"], "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
-             "bound_by": w["bound_by"], "library_ms": w["library_ms"]},
-            {"name": "flash_attention", "route": "cuda",
-             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-             "replaces": "src/repro/kernels/flash_attention.py:24",
-             "launches": launches["flash_attention"], "max_abs_err": f["err"],
-             "ms": f["ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
-             "bound_by": f["bound_by"], "library_ms": f["library_ms"]},
-        ]
+            add(phase(torch, ops, "int4", "int8"))
+    if "ring" in phases:
+        add(phase_ring(torch, ops))
+    if "gemma3" in phases:
+        add(phase_gemma3(torch, ops))
+    if "static" in phases:
+        add(phase_static(torch, ops))
+    sources = {
+        "paged_attention": ("paged_attention.cu", "paged_attention.py:122"),
+        "quant_matmul": ("quant_matmul.cu", "quant_matmul.py:45"),
+        "paged_window": ("paged_attention.cu", "paged_attention.py:172"),
+        "flash_attention": ("flash_attention.cu", "flash_attention.py:24"),
+        "quantize_rowwise": ("quantize_rowwise.cu", "quantize_kernel.py:18"),
+    }
+    kernels = [
+        {"name": k, "route": "cuda",
+         "source": f"src/repro_torch/kernels/csrc/{src}",
+         "replaces": f"src/repro/kernels/{tpu}",
+         "launches": launches[k], "max_abs_err": c["err"], "ms": c["ms"],
+         "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+         "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
+        for k, (src, tpu) in sources.items() if (c := cases.get(k)) is not None]
+    if not argv and not all(launches.values()):
+        fail(f"a kernel of the serve paths never launched: {launches}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"[smoke] card: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -71,3 +71,18 @@ def global_param_shapes(spec: ModelSpec) -> Dict[str, Shape]:
     if not spec.tie_embeddings:
         out["head"] = (d, vp)
     return out
+
+
+def layer_state_shapes(spec: ModelSpec, kind: str, batch: int,
+                       max_seq: int) -> Dict[str, Shape]:
+    """Decode-state shapes of one attention layer's contiguous cache; a
+    sliding-window layer holds at most one window."""
+    kv = (spec.num_kv_heads, spec.head_dim)
+    if kind in ("attn", "attn_global", "enc_attn"):
+        return {"k": (batch, max_seq, *kv), "v": (batch, max_seq, *kv)}
+    if kind == "attn_local":
+        w = min(max_seq, spec.sliding_window or max_seq)
+        return {"k": (batch, w, *kv), "v": (batch, w, *kv)}
+    raise NotImplementedError(
+        f"decode state of layer kind {kind!r} is not ported yet "
+        "(ROADMAP queue 1 item 7)")

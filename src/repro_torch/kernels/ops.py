@@ -6,13 +6,14 @@ version on the card; nothing on the serving path passes it.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import quant_matmul as _qmm
+from repro_torch.kernels import quantize_rowwise as _qrw
 from repro_torch.quant.qtypes import QuantizedTensor
 
 _IMPLS = ("auto", "plain")
@@ -82,12 +83,22 @@ def quant_matmul(x: torch.Tensor, w: QuantizedTensor, *,
     return fn(x, wq, scale, bits=bits, group=group)
 
 
+def quantize_rowwise(x: torch.Tensor, *, bits: int = 8,
+                     impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric quantization, x (M, K) -> (q int8 (M, K), scale
+    f32 (M, 1)); see ``kernels.quantize_rowwise``."""
+    fn = (_qrw.quantize_rowwise_plain if _use_plain(x, impl)
+          else _qrw.quantize_rowwise_cuda)
+    return fn(x, bits=bits)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, by kernel."""
     return {"paged_attention": _pa.LAUNCHES,
             "paged_window": _pa.WINDOW_LAUNCHES,
             "quant_matmul": _qmm.LAUNCHES,
-            "flash_attention": _fa.LAUNCHES}
+            "flash_attention": _fa.LAUNCHES,
+            "quantize_rowwise": _qrw.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
@@ -95,3 +106,4 @@ def reset_launch_counts() -> None:
     _pa.WINDOW_LAUNCHES = 0
     _qmm.LAUNCHES = 0
     _fa.LAUNCHES = 0
+    _qrw.LAUNCHES = 0

@@ -1,19 +1,26 @@
-"""Serving launcher of the port: the continuous-batching paged engine with
-optional weight quantization, on one CUDA device (or the CPU when asked).
+"""Serving launcher of the port: static batched generation or the
+continuous-batching paged engine, with optional weight quantization, on
+one CUDA device (or the CPU when asked).
 
     python -m repro_torch.launch.serve --engine paged --arch tinyllama-1.1b \\
         --precision int4 --cache-dtype int8
 
 runs the named model at its full width from seeded random weights
-(``--local`` scales it down for a quick CPU run), submits ``--batch``
+(``--local`` scales it down for a quick CPU run).  ``--engine static``
+(the default, as in the JAX launcher) prefills ``--batch`` prompts of
+``--prompt-len`` tokens and decodes ``--steps`` tokens with
+``serve.engine.generate``; ``--engine paged`` submits ``--batch``
 requests with prompts of ``--min-prompt-len``..``--prompt-len`` tokens
-and ``--steps`` new tokens each, drains the scheduler and reports
-tokens/s.  ``--precision`` quantizes the weights (int8 per channel,
-int4 group-32), ``--cache-dtype`` picks the KV page precision, and
-``--spec-k K`` turns on self-speculative decoding (n-gram prompt-lookup
-drafts verified K tokens per step; outputs stay greedy).  The static
-engine, ``--devices > 1`` and ``--dp > 1`` are not ported yet and are
-refused.
+and ``--steps`` new tokens each to the scheduler and drains it.
+``--precision`` quantizes the weights (int8 per channel, int4
+group-32), ``--cache-dtype`` picks the KV page precision, ``--spec-k
+K`` turns on self-speculative decoding (n-gram prompt-lookup drafts
+verified K tokens per step; outputs stay greedy), and
+``--sliding-window W`` overrides the spec's attention window: on a
+uniformly ``attn_local`` stack (Gemma3 cut to at most its first five
+layers with ``--local --layers``) the paged engine switches to ring
+block tables, per-slot KV bounded at O(window) pages.  ``--devices > 1``
+and ``--dp > 1`` are not ported yet and are refused.
 """
 from __future__ import annotations
 
@@ -31,9 +38,6 @@ from repro_torch.quant.qlinear import quantize_params
 
 
 def _refuse(args) -> Optional[str]:
-    if args.engine != "paged":
-        return ("--engine static is not ported yet (ROADMAP queue 1 item 5); "
-                "use --engine paged")
     if args.devices > 1:
         return "--devices > 1 is not ported yet (ROADMAP queue 1 item 6)"
     if args.dp > 1:
@@ -58,7 +62,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="new tokens per request")
     ap.add_argument("--precision", default="fp32",
                     choices=["fp32", "int8", "int4"])
-    ap.add_argument("--engine", default="paged", choices=["static", "paged"])
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="static engine sampling temperature (0 = greedy)")
+    ap.add_argument("--engine", default="static", choices=["static", "paged"],
+                    help="static generate() vs the continuous-batching "
+                         "paged scheduler")
     ap.add_argument("--cache-dtype", default="fp32",
                     choices=["fp32", "int8", "int4"],
                     help="paged KV page precision")
@@ -71,8 +79,41 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sliding-window", type=int, default=0,
                     help="override the spec's attention sliding window")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    ap.add_argument("--seed", type=int, default=0, help="weight seed")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="weight seed (sampling uses seed + 1)")
     return ap
+
+
+def _prompts(args, spec, lo: int):
+    """``--batch`` prompts of ``lo``..``--prompt-len`` tokens from seed 1."""
+    rng = np.random.default_rng(1)
+    return [rng.integers(0, spec.vocab_size,
+                         size=int(rng.integers(lo, args.prompt_len + 1))
+                         ).astype(np.int32) for _ in range(args.batch)]
+
+
+def run_static(args, spec, params, device) -> Dict[str, Any]:
+    """Static batched generation: ``--batch`` prompts of ``--prompt-len``
+    tokens, ``--steps`` decode steps."""
+    from repro_torch.serve.engine import ServeConfig, generate
+    prompts = np.stack(_prompts(args, spec, args.prompt_len))
+    cfg = ServeConfig(max_seq=args.prompt_len + args.steps + 1,
+                      temperature=args.temperature,
+                      weight_precision=args.precision,
+                      attention_impl="naive")
+    gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+    batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64,
+                                       device=device)}
+    t0 = time.perf_counter()
+    out = generate(params, spec, batch, args.steps, cfg, generator=gen)
+    tokens = out["tokens"].cpu().numpy()        # waits for the device
+    dt = time.perf_counter() - t0
+    print(f"[serve] static engine on {device} ({args.precision} weights): "
+          f"generated {args.batch}x{args.steps} tokens in {dt:.2f}s "
+          f"({args.batch * args.steps / dt:.1f} tok/s)")
+    print(tokens[:, :16])
+    return {"prompts": prompts, "tokens": tokens, "seconds": dt,
+            "tokens_per_s": args.batch * args.steps / dt}
 
 
 def run_paged(args, spec, params, device) -> Dict[str, Any]:
@@ -81,13 +122,9 @@ def run_paged(args, spec, params, device) -> Dict[str, Any]:
     from repro_torch.serve.backend import SingleDeviceBackend
     from repro_torch.serve.scheduler import (ContinuousBatchingEngine,
                                              Request, SchedulerConfig)
-    rng = np.random.default_rng(1)
     lo = args.min_prompt_len or max(4, args.prompt_len // 2)
-    reqs = []
-    for i in range(args.batch):
-        plen = int(rng.integers(lo, args.prompt_len + 1))
-        prompt = rng.integers(0, spec.vocab_size, size=plen).astype(np.int32)
-        reqs.append(Request(i, prompt, args.steps))
+    reqs = [Request(i, p, args.steps)
+            for i, p in enumerate(_prompts(args, spec, lo))]
     cfg = SchedulerConfig(
         max_slots=min(8, args.batch), page_size=16,
         max_seq=args.prompt_len + args.steps + 16,
@@ -115,6 +152,11 @@ def run_paged(args, spec, params, device) -> Dict[str, Any]:
         print(f"[serve] chunked prefill: {cfg.prefill_chunk_tokens}-token "
               f"budget, {int(eng.stats['prefill_chunks'])} partial chunks")
     st = eng.stats
+    if eng.ring:
+        print(f"[serve] sliding window {eng.window}: ring tables "
+              f"{eng.layout.slots_pages(cfg.max_seq)} pages/slot, "
+              f"{int(st['ring_recycled_pages'])} pages recycled in place, "
+              f"{int(st['ring_shared_released'])} shared entries released")
     if cfg.spec_k > 1:
         acc = st["spec_accepted"] / max(1, st["spec_drafted"])
         print(f"[serve] spec decode: {int(st['spec_steps'])} windows, "
@@ -147,7 +189,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     if args.precision in ("int8", "int4"):
         params = quantize_params(params, args.precision)
         print(f"[serve] weights quantized to {args.precision}")
-    return run_paged(args, spec, params, device)
+    if args.engine == "paged":
+        return run_paged(args, spec, params, device)
+    return run_static(args, spec, params, device)
 
 
 if __name__ == "__main__":

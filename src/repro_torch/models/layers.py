@@ -6,6 +6,7 @@ Parameter names and shapes come from ``core.blocks``; weights are
 """
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
@@ -101,6 +102,31 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     end-aligned with Sq <= Sk, so each sees at least its own key)."""
     return flash_attention_plain(q, k, v, causal=causal, window=window,
                                  softcap=softcap)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: int, *, window: int = 0,
+                     ring: bool = False) -> torch.Tensor:
+    """Single-token attention against a contiguous cache: q (B, 1, H, D),
+    caches (B, S, KV, D), ``pos`` the current token's absolute position.
+    On a ring buffer (``ring=True``) entry j holds absolute position
+    ``pos - ((pos - j) mod S)``; never-written entries are masked."""
+    D = q.shape[-1]
+    S = k_cache.shape[1]
+    s = grouped_scores(q, k_cache) / math.sqrt(D)                # (B,KV,G,1,S)
+    idx = torch.arange(S, device=q.device)
+    if ring:
+        abs_pos = pos - torch.remainder(pos - idx, S)
+        valid = abs_pos >= 0
+        if window:
+            valid &= (pos - abs_pos) < window
+    else:
+        valid = idx <= pos
+        if window:
+            valid &= (pos - idx) < window
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return grouped_out(p, v_cache).to(q.dtype)
 
 
 def attention_block(spec: ModelSpec, p: Params, x: torch.Tensor,

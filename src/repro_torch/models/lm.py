@@ -11,7 +11,9 @@ new arrays); they also return the cache so call sites read alike.
 
 Entry points:
     init(seed, spec, device=)                      -> params
+    init_cache(spec, batch, max_seq)               -> contiguous cache
     prefill(params, spec, batch, true_len=)        -> (logits, contiguous cache)
+    decode_step(params, spec, cache, tokens)       -> (logits, cache)  one token
     init_paged_cache(spec, batch, max_seq, layout) -> paged cache
     prefill_paged(...)                             -> (logits, cache)  suffix prefill
     decode_step_paged(params, spec, cache, tokens) -> (logits, cache)  one token
@@ -234,22 +236,52 @@ def _attn_prefill_kv(spec, p, xn, positions):
 
 
 # ---------------------------------------------------------------------------
-# Prefill: forward + contiguous cache
+# Contiguous cache, prefill
 # ---------------------------------------------------------------------------
 
+def init_cache(spec: ModelSpec, batch: int, max_seq: int,
+               dtype=torch.float32, *, paged: Optional[PagedLayout] = None,
+               device=None) -> Params:
+    """Contiguous cache: one ``{"k", "v"}`` dict of (batch, S, KV, D)
+    buffers PER LAYER (list per group), S = ``max_seq`` (``attn_local``
+    layers: ``min(max_seq, sliding_window)``), and a scalar ``pos``.
+    With ``paged`` set, returns the block-table paged layout instead
+    (``init_paged_cache``, ``dtype`` then "fp32" | "int8" | "int4")."""
+    if paged is not None:
+        return init_paged_cache(spec, batch, max_seq, paged, dtype,
+                                device=device)
+    dev = resolve_device(device)
+    cache: Params = {"pos": torch.zeros((), dtype=torch.int32, device=dev),
+                     "groups": []}
+    for g in group_plan(spec):
+        shapes = blocks.layer_state_shapes(spec, _check_dense(g.kind), batch,
+                                           max_seq)
+        cache["groups"].append([
+            {name: torch.zeros(shape, dtype=dtype, device=dev)
+             for name, shape in shapes.items()}
+            for _ in range(g.n)])
+    return cache
+
+
 def prefill(params, spec: ModelSpec, batch, *, max_seq: Optional[int] = None,
-            impl: str = "naive",
+            impl: str = "naive", cache_dtype=None,
             true_len=None) -> Tuple[torch.Tensor, Params]:
     """Run the prompt, return (last-position logits, contiguous cache of
-    per-layer ``{"k", "v"}`` (B, max_seq, KV, D), zero-padded past S).
-    With ``true_len`` the prompt is bucket-padded: logits come from
-    position ``true_len - 1`` and ``cache["pos"]`` is ``true_len``.
-    (The JAX version also lays out ring caches for the contiguous decode
-    path, which is not ported.)"""
+    per-layer ``{"k", "v"}`` (B, max_seq, KV, D), zero-padded past S, in
+    ``cache_dtype`` (default: the activations' dtype)).  With
+    ``true_len`` the prompt is bucket-padded: logits come from position
+    ``true_len - 1`` and ``cache["pos"]`` is ``true_len``.
+
+    An ``attn_local`` layer whose buffer is exactly one window
+    (``max_seq == sliding_window``) gets the RING layout the contiguous
+    decode path reads: buffer entry j holds the unique position
+    ``p = j (mod W)`` within the final window [S - W, S)."""
     x = _embed(params, spec, batch["tokens"])
     B, S = x.shape[:2]
     max_seq = max_seq or S
+    dtype = cache_dtype or x.dtype
     positions = torch.arange(S, device=x.device)[None]
+    W = spec.sliding_window
     groups = []
     for g, gp in zip(group_plan(spec), params["groups"]):
         base = _check_dense(g.kind)
@@ -258,10 +290,18 @@ def prefill(params, spec: ModelSpec, batch, *, max_seq: Optional[int] = None,
             k, v = _attn_prefill_kv(spec, p, L.norm(spec, p, "norm1", x),
                                     positions)
             x = _layer_forward(spec, g.kind, p, x, positions, impl)
-            pad = max_seq - S
-            k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-            v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-            layers.append({"k": k, "v": v})
+            if base == "attn_local" and W and max_seq == W and S >= W:
+                sel = (S - W) + torch.remainder(
+                    torch.arange(W, device=x.device) - (S - W), W)
+                k, v = k[:, sel], v[:, sel]
+            else:
+                pad = max_seq - S
+                if pad < 0:
+                    raise ValueError(f"a {S}-token prompt does not fit a "
+                                     f"{max_seq}-token {base} cache")
+                k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+                v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+            layers.append({"k": k.to(dtype), "v": v.to(dtype)})
         groups.append(layers)
     if true_len is None:
         x_last = x[:, -1:]
@@ -272,6 +312,58 @@ def prefill(params, spec: ModelSpec, batch, *, max_seq: Optional[int] = None,
     pos = S if true_len is None else int(true_len)
     return logits, {"pos": torch.tensor(pos, dtype=torch.int32,
                                         device=x.device), "groups": groups}
+
+
+# ---------------------------------------------------------------------------
+# Contiguous decode
+# ---------------------------------------------------------------------------
+
+def _attn_decode(spec, p, x, pos: int, kv, *, kind,
+                 impl="auto") -> torch.Tensor:
+    """Decode attention for one layer over a contiguous cache entry
+    ``kv`` (B, S, KV, D): write the new k/v row at ``pos`` (an int shared
+    by the batch; entry ``pos % S`` on a one-window ``attn_local``
+    ring, else ``pos`` clamped into the buffer as JAX's
+    ``dynamic_update_slice`` clamps), in place, then attend."""
+    B = x.shape[0]
+    H, KV, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    S = kv["k"].shape[1]
+    q = qdot(x, p["wq"], impl=impl).reshape(B, 1, H, D)
+    k = qdot(x, p["wk"], impl=impl).reshape(B, 1, KV, D)
+    v = qdot(x, p["wv"], impl=impl).reshape(B, 1, KV, D)
+    posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q = L.rope(q, posb, spec.rope_theta)
+    k = L.rope(k, posb, spec.rope_theta)
+    ring = bool(kind == "attn_local" and spec.sliding_window
+                and S == spec.sliding_window)
+    slot = pos % S if ring else min(pos, S - 1)
+    kv["k"][:, slot] = k[:, 0].to(kv["k"].dtype)
+    kv["v"][:, slot] = v[:, 0].to(kv["v"].dtype)
+    window = spec.sliding_window if kind == "attn_local" else 0
+    o = L.decode_attention(q, kv["k"], kv["v"], pos, window=window,
+                           ring=ring)
+    return qdot(o.reshape(B, 1, H * D), p["wo"], impl=impl)
+
+
+def decode_step(params, spec: ModelSpec, cache, tokens, *, ring: bool = False,
+                impl: str = "auto") -> Tuple[torch.Tensor, Params]:
+    """One decode step for the whole batch, tokens (B, 1) -> logits
+    (B, 1, V), over a contiguous cache (updated in place; ``pos``
+    advances by one).  A paged cache (one with ``block_tables``)
+    dispatches to ``decode_step_paged``."""
+    if "block_tables" in cache:
+        return decode_step_paged(params, spec, cache, tokens, ring=ring,
+                                 impl=impl)
+    if ring:
+        raise ValueError("ring layout requires a paged cache")
+    pos = int(cache["pos"])             # one host read per step, not per layer
+    x = _layer_stack(
+        params, spec, cache, _embed(params, spec, tokens),
+        lambda p, xn, kv, kind: _attn_decode(spec, p, xn, pos, kv, kind=kind,
+                                             impl=impl), impl=impl)
+    logits = _lm_head(params, spec, x, impl=impl)
+    cache["pos"] = cache["pos"] + 1
+    return logits, cache
 
 
 # ---------------------------------------------------------------------------
@@ -317,13 +409,24 @@ def _scatter_kv_rows(kv: Dict, name: str, rows: torch.Tensor,
     kv[name + "_scale"][tgt_page, :, tgt_off] = srow[..., 0]
 
 
+def _ring_or_clamp(page_idx: torch.Tensor, n_entries: int,
+                   ring: bool) -> torch.Tensor:
+    """Block-table entry of an absolute page: ``page % R`` on a ring of R
+    entries; on a flat table an out-of-range page clamps to the last
+    entry, as a JAX gather does."""
+    if ring:
+        return torch.remainder(page_idx, n_entries)
+    return torch.clamp(page_idx, max=n_entries - 1)
+
+
 def _attn_decode_paged(spec, p, x, pos, kv, block_tables, *, kind,
-                       impl="auto") -> torch.Tensor:
+                       ring=False, impl="auto") -> torch.Tensor:
     """Paged-cache decode attention for one layer: write the new k/v row
     at each slot's position ``pos`` (B,), then attend over the slot's
     block table with the paged attention op (the CUDA kernel on a CUDA
-    tensor).  Flat block tables only: the ring layout of sliding-window
-    stacks is not ported yet (ROADMAP queue 1 item 2)."""
+    tensor).  ``ring=True`` treats each block-table row as a ring of R
+    entries: absolute page q lives at entry ``q % R``, and the op walks
+    the ring."""
     B = x.shape[0]
     H, KV, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
     page = kv["k_scale"].shape[-1] if "k_scale" in kv else kv["k_pages"].shape[1]
@@ -334,8 +437,7 @@ def _attn_decode_paged(spec, p, x, pos, kv, block_tables, *, kind,
     q = L.rope(q, posb, spec.rope_theta)
     k = L.rope(k, posb, spec.rope_theta)
 
-    # an out-of-range entry clamps to the last one, as a JAX gather does
-    pidx = torch.clamp(pos.long() // page, max=block_tables.shape[1] - 1)
+    pidx = _ring_or_clamp(pos.long() // page, block_tables.shape[1], ring)
     slot_page = block_tables[torch.arange(B, device=x.device), pidx]
     off = pos.long() % page
     for name, row in (("k", k[:, 0]), ("v", v[:, 0])):
@@ -344,13 +446,13 @@ def _attn_decode_paged(spec, p, x, pos, kv, block_tables, *, kind,
     window = spec.sliding_window if kind == "attn_local" else 0
     o = kops.paged_attention(
         q[:, 0].contiguous(), kv["k_pages"], kv["v_pages"], block_tables,
-        pos + 1, window=window, k_scale=kv.get("k_scale"),
+        pos + 1, window=window, ring=ring, k_scale=kv.get("k_scale"),
         v_scale=kv.get("v_scale"), impl=impl)
     return qdot(o.reshape(B, 1, H * D), p["wo"], impl=impl)
 
 
 def _attn_decode_window_paged(spec, p, x, pos, lens, kv, block_tables, *,
-                              kind, impl="auto") -> torch.Tensor:
+                              kind, ring=False, impl="auto") -> torch.Tensor:
     """Paged attention for a K-token DECODE WINDOW (speculative verify).
 
     ``x`` is (B, K, d): the last committed token plus K-1 drafted tokens
@@ -359,7 +461,8 @@ def _attn_decode_window_paged(spec, p, x, pos, lens, kv, block_tables, *,
     rows past it route to the null page.  All K rows scatter before the
     attention, so the window reads itself causally from the same pages
     (and the same per-token quantized values) a sequential decode would.
-    Flat block tables only (ROADMAP queue 1 item 2 for rings)."""
+    ``ring`` as in ``_attn_decode_paged``: row j lands at entry
+    ``((pos + j) // page) % R``."""
     B, K = x.shape[:2]
     H, KV, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
     page = kv["k_scale"].shape[-1] if "k_scale" in kv else kv["k_pages"].shape[1]
@@ -371,8 +474,7 @@ def _attn_decode_window_paged(spec, p, x, pos, lens, kv, block_tables, *,
     k = L.rope(k, posb, spec.rope_theta)
 
     valid = torch.arange(K, device=x.device)[None] < lens[:, None]      # (B, K)
-    # an out-of-range entry clamps to the last one, as a JAX gather does
-    page_idx = torch.clamp(posb // page, max=block_tables.shape[1] - 1)
+    page_idx = _ring_or_clamp(posb // page, block_tables.shape[1], ring)
     rows = torch.arange(B, device=x.device)[:, None]
     tgt_page = torch.where(valid, block_tables[rows, page_idx].long(),
                            torch.zeros_like(page_idx))
@@ -384,17 +486,23 @@ def _attn_decode_window_paged(spec, p, x, pos, lens, kv, block_tables, *,
     window = spec.sliding_window if kind == "attn_local" else 0
     o = kops.paged_attention(
         q.contiguous(), kv["k_pages"], kv["v_pages"], block_tables, pos + K,
-        window=window, k_scale=kv.get("k_scale"), v_scale=kv.get("v_scale"),
-        impl=impl)
+        window=window, ring=ring, k_scale=kv.get("k_scale"),
+        v_scale=kv.get("v_scale"), impl=impl)
     return qdot(o.reshape(B, K, H * D), p["wo"], impl=impl)
 
 
 def _suffix_attn_paged(spec, p, xn, positions, kv, pref_pages, prefix_len,
-                       tgt_page, tgt_off, *, kind) -> torch.Tensor:
+                       tgt_page, tgt_off, *, kind, ring=False) -> torch.Tensor:
     """Attention for a prompt SUFFIX against cached prefix pages: gather
     the prefix K/V rows (dequantizing int8, unpacking int4), attend
     causally over [prefix ; suffix], and scatter the suffix K/V into the
-    slot's own pages.  Padded rows go to the null page via ``tgt_page``."""
+    slot's own pages.  Padded rows go to the null page via ``tgt_page``.
+
+    ``ring=True``: ``pref_pages`` is a slot's ring row (entry j holds the
+    absolute page ``last - ((last - j) mod R)`` of the context already
+    written, ``last = (prefix_len - 1) // page``), so the gathered rows
+    get per-entry absolute key positions and never-written entries
+    (negative positions) are masked."""
     B, S = xn.shape[:2]
     H, KV, D = spec.num_heads, spec.num_kv_heads, spec.head_dim
     quant = _paged_quant(kv)
@@ -426,7 +534,16 @@ def _suffix_attn_paged(spec, p, xn, positions, kv, pref_pages, prefix_len,
     if spec.attn_logit_softcap:
         s = torch.tanh(s / spec.attn_logit_softcap) * spec.attn_logit_softcap
     i_abs = positions[0][:, None]                        # (S, 1)
-    k_abs = torch.cat([torch.arange(npr, device=xn.device), positions[0]])
+    if ring:
+        n_ent = pref_pages.shape[0]
+        last = max(prefix_len - 1, 0) // page
+        j = torch.arange(n_ent, device=xn.device)
+        ap = last - torch.remainder(last - j, n_ent)     # abs page per entry
+        pref_abs = (ap[:, None] * page
+                    + torch.arange(page, device=xn.device)[None]).reshape(npr)
+    else:
+        pref_abs = torch.arange(npr, device=xn.device)
+    k_abs = torch.cat([pref_abs, positions[0]])
     is_suffix = torch.cat([torch.zeros(npr, dtype=torch.bool, device=xn.device),
                            torch.ones(S, dtype=torch.bool, device=xn.device)])
     valid = (k_abs[None, :] >= 0) & (k_abs[None, :] <= i_abs) & \
@@ -444,11 +561,12 @@ def _suffix_attn_paged(spec, p, xn, positions, kv, pref_pages, prefix_len,
     return out
 
 
-def _paged_layers(params, spec: ModelSpec, cache, x, attn,
-                  impl: str = "auto") -> torch.Tensor:
-    """The residual stack over a paged cache: each layer adds
-    ``attn(p, norm1(x), kv, kind)`` (its paged attention, which reads and
-    writes the layer's pools ``kv``) and then its MLP."""
+def _layer_stack(params, spec: ModelSpec, cache, x, attn,
+                 impl: str = "auto") -> torch.Tensor:
+    """The residual stack over a cache: each layer adds
+    ``attn(p, norm1(x), kv, kind)`` (its attention, which reads and
+    writes the layer's cache entry ``kv``: paged pools or a contiguous
+    k/v buffer) and then its MLP."""
     for g, gp, cg in zip(group_plan(spec), params["groups"], cache["groups"]):
         base = _check_dense(g.kind)
         for p, kv in zip(gp, cg):
@@ -459,14 +577,21 @@ def _paged_layers(params, spec: ModelSpec, cache, x, attn,
 
 
 def prefill_paged(params, spec: ModelSpec, tokens, cache, slot: int, bt_row,
-                  prefix_len: int, true_len: int, *,
-                  n_prefix_pages: int) -> Tuple[torch.Tensor, Params]:
+                  prefix_len: int, true_len: int, *, n_prefix_pages: int,
+                  ring: bool = False) -> Tuple[torch.Tensor, Params]:
     """Prefill a prompt SUFFIX into a paged slot whose first ``prefix_len``
     tokens are already cached.  ``tokens`` (1, S) is the bucket-padded
     suffix, ``true_len`` its real length, ``n_prefix_pages`` how many
     block-table entries to gather for the prefix (rows past
     ``prefix_len`` are masked).  Returns the logits of the last true
-    suffix token; sets ``pos[slot]`` and the slot's block-table row."""
+    suffix token; sets ``pos[slot]`` and the slot's block-table row.
+
+    ``ring=True``: ``bt_row`` is a ring of R entries.  Suffix rows land
+    at entry ``abs_page % R``; rows whose absolute page falls at or
+    below ``last_pg - R`` (``last_pg`` the chunk's last page) go to the
+    null page, so only the last R pages of an over-long chunk are kept,
+    which is all the sliding window can read.  The prefix gather follows
+    the ring mapping (``_suffix_attn_paged``)."""
     page = paged_page_size(cache)
     dev = tokens.device
     S = tokens.shape[1]
@@ -475,16 +600,20 @@ def prefill_paged(params, spec: ModelSpec, tokens, cache, slot: int, bt_row,
     positions = (prefix_len + ar)[None]                  # (1, S) absolute
     pref_pages = bt_row[:n_prefix_pages]
     abs_pos = prefix_len + ar
-    page_idx = torch.clamp(abs_pos // page, max=bt_row.shape[0] - 1)
-    tgt_page = torch.where(ar < true_len, bt_row[page_idx].long(),
-                           torch.zeros_like(page_idx))
+    apg = abs_pos // page
+    R = bt_row.shape[0]
+    keep = ar < true_len
+    if ring:
+        keep &= apg > (prefix_len + true_len - 1) // page - R
+    tgt_page = torch.where(keep, bt_row[_ring_or_clamp(apg, R, ring)].long(),
+                           torch.zeros_like(apg))
     tgt_off = abs_pos % page
 
-    x = _paged_layers(
+    x = _layer_stack(
         params, spec, cache, _embed(params, spec, tokens),
         lambda p, xn, kv, kind: _suffix_attn_paged(
             spec, p, xn, positions, kv, pref_pages, prefix_len, tgt_page,
-            tgt_off, kind=kind))
+            tgt_off, kind=kind, ring=ring))
     logits = _lm_head(params, spec, x[:, true_len - 1:true_len])
     cache["pos"][slot] = prefix_len + true_len
     cache["block_tables"][slot] = bt_row
@@ -492,24 +621,28 @@ def prefill_paged(params, spec: ModelSpec, tokens, cache, slot: int, bt_row,
 
 
 def decode_step_paged(params, spec: ModelSpec, cache, tokens, *,
+                      ring: bool = False,
                       impl: str = "auto") -> Tuple[torch.Tensor, Params]:
     """One decode step over a PAGED cache (per-slot positions): tokens
     (B, 1) -> logits (B, 1, V); every layer's attention reads and writes
-    through the block tables, and ``pos`` advances by one.  ``impl`` is
-    handed to the kernels' dispatch; the serving path leaves it at
-    ``"auto"`` and only kernel-vs-plain checks pass ``"plain"``."""
+    through the block tables (rings with ``ring=True``), and ``pos``
+    advances by one.  ``impl`` is handed to the kernels' dispatch; the
+    serving path leaves it at ``"auto"`` and only kernel-vs-plain checks
+    pass ``"plain"``."""
     pos = cache["pos"]
     bt = cache["block_tables"]
-    x = _paged_layers(
+    x = _layer_stack(
         params, spec, cache, _embed(params, spec, tokens),
         lambda p, xn, kv, kind: _attn_decode_paged(
-            spec, p, xn, pos, kv, bt, kind=kind, impl=impl), impl=impl)
+            spec, p, xn, pos, kv, bt, kind=kind, ring=ring, impl=impl),
+        impl=impl)
     logits = _lm_head(params, spec, x, impl=impl)
     cache["pos"] = pos + 1
     return logits, cache
 
 
 def decode_window_paged(params, spec: ModelSpec, cache, tokens, lens, *,
+                        ring: bool = False,
                         impl: str = "auto") -> Tuple[torch.Tensor, Params]:
     """K-token decode window over a paged cache (speculative verify):
     ``tokens`` (B, K) is the last committed token followed by K-1 drafts
@@ -517,12 +650,13 @@ def decode_window_paged(params, spec: ModelSpec, cache, tokens, lens, *,
     for all K positions (B, K, V) -- position j's are what sequential
     ``decode_step_paged`` would give after committing ``tokens[:, :j+1]``
     -- and the cache with every real window row written but ``pos``
-    UNCHANGED: the caller advances it by the accepted count.  ``impl``
-    as in ``decode_step_paged``."""
+    UNCHANGED: the caller advances it by the accepted count.  ``ring``
+    and ``impl`` as in ``decode_step_paged``."""
     pos = cache["pos"]
     bt = cache["block_tables"]
-    x = _paged_layers(
+    x = _layer_stack(
         params, spec, cache, _embed(params, spec, tokens),
         lambda p, xn, kv, kind: _attn_decode_window_paged(
-            spec, p, xn, pos, lens, kv, bt, kind=kind, impl=impl), impl=impl)
+            spec, p, xn, pos, lens, kv, bt, kind=kind, ring=ring, impl=impl),
+        impl=impl)
     return _lm_head(params, spec, x, impl=impl), cache

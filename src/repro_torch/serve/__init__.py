@@ -1,5 +1,6 @@
 """Serving package of the port: the continuous-batching scheduler (host
-state, shared text with the JAX package) over a torch paged-KV backend."""
+state, shared text with the JAX package) over a torch paged-KV backend,
+and the static engine (``serve.engine``)."""
 from repro_torch.serve.backend import PagedKVBackend, SingleDeviceBackend
 from repro_torch.serve.scheduler import (Completion, ContinuousBatchingEngine,
                                          Request, SchedulerConfig)

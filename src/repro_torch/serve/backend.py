@@ -13,8 +13,12 @@ attention and quantized matmuls are the CUDA kernels on a CUDA device,
 copy-on-write, slot release and the host swap tier.  Pools are updated
 in place.
 
-Not ported yet, and refused at construction rather than run wrongly:
-the ring block tables of uniformly sliding-window stacks.
+A uniformly sliding-window stack (every layer ``attn_local``, e.g.
+Gemma3 cut to its first five layers) gets RING block tables of
+``ring_pages(window, page, spec_k)`` entries per slot unless
+``cfg.windowed_kv`` is False (``paged_cache.ring_window``): absolute
+page q lives at entry ``q % R`` in every step, so a slot's KV stays
+O(window) however long its stream runs.
 """
 from __future__ import annotations
 
@@ -27,10 +31,6 @@ from repro_torch.core.model_config import ModelSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.serve import paged_cache as pc
-
-RING_TODO = ("ring block tables for sliding-window stacks are not ported yet "
-             "(ROADMAP queue 1 item 2)")
-
 
 class PagedKVBackend:
     """Interface the scheduler drives; implementations own the device
@@ -114,10 +114,11 @@ class SingleDeviceBackend(PagedKVBackend):
     ``cuda`` and raises when there is none."""
 
     def __init__(self, params: Any, spec: ModelSpec, cfg, *, device=None):
+        # uniformly sliding-window stacks get a ring block table bounded
+        # at O(window) pages per slot (unless cfg.windowed_kv forces the
+        # mask-only reference); everything else keeps the flat layout
         self.window = pc.ring_window(spec, getattr(cfg, "windowed_kv", None))
-        if self.window > 0:
-            raise NotImplementedError(RING_TODO)
-        self.ring = False
+        self.ring = self.window > 0
         self.device = resolve_device(device)
         self.params = _to_device(params, self.device)
         self.spec, self.cfg = spec, cfg
@@ -150,8 +151,18 @@ class SingleDeviceBackend(PagedKVBackend):
         page = lm.paged_page_size(self.cache)
         n = tokens.shape[1] // page                  # prompt pages
         row = self._tensor(bt_row)
-        pc.scatter_prompt_pages(self.cache["groups"], pre["groups"], row[:n],
-                                page)
+        if self.ring:
+            # absolute prompt page q goes to entry q % R when it lies in
+            # the last R pages (the window can read no other), else to
+            # the null page, as do the padding pages past true_len
+            R = row.shape[0]
+            apg = torch.arange(n, device=self.device)
+            last_pg = (true_len - 1) // page
+            keep = (apg > last_pg - R) & (apg <= last_pg)
+            pv = torch.where(keep, row[apg % R], torch.zeros_like(row[:1]))
+        else:
+            pv = row[:n]
+        pc.scatter_prompt_pages(self.cache["groups"], pre["groups"], pv, page)
         self.cache["pos"][slot] = true_len
         self.cache["block_tables"][slot] = row
         return int(torch.argmax(logits[0, 0]))
@@ -162,7 +173,7 @@ class SingleDeviceBackend(PagedKVBackend):
         logits, _ = lm.prefill_paged(
             self.params, self.spec, self._tensor(padded_suffix, torch.int64),
             self.cache, slot, self._tensor(bt_row), prefix_len, true_len,
-            n_prefix_pages=n_prefix_pages)
+            n_prefix_pages=n_prefix_pages, ring=self.ring)
         return int(torch.argmax(logits[0, 0]))
 
     def prefill_chunk(self, padded_chunk, slot, prefix_len, true_len,
@@ -181,7 +192,8 @@ class SingleDeviceBackend(PagedKVBackend):
             return self._decode_window(tokens, active, lens)
         act = self._tensor(active)
         logits, self.cache = lm.decode_step_paged(
-            self.params, self.spec, self.cache, self._tensor(tokens, torch.int64))
+            self.params, self.spec, self.cache,
+            self._tensor(tokens, torch.int64), ring=self.ring)
         # pin inactive slots at pos 0 so their block-table lookups stay on
         # the null page
         self.cache["pos"] = self.cache["pos"] * act
@@ -206,7 +218,7 @@ class SingleDeviceBackend(PagedKVBackend):
         ln = self._tensor(lens)
         pos0 = self.cache["pos"]
         logits, self.cache = lm.decode_window_paged(
-            self.params, self.spec, self.cache, tok, ln)
+            self.params, self.spec, self.cache, tok, ln, ring=self.ring)
         out = torch.argmax(logits, dim=-1)                      # (B, K)
         K = tok.shape[1]
         j = torch.arange(K - 1, device=self.device)

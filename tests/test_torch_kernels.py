@@ -134,6 +134,17 @@ def test_paged_attention_window_plain_matches_jax(quant, mode, K):
     assert np.max(np.abs(o_plain - o_pal)) <= PALLAS_TOL[quant]
 
 
+@pytest.mark.parametrize("K", [0, 4])
+@pytest.mark.parametrize("quant", ["fp32", "int8", "int4"])
+@pytest.mark.parametrize("mode", ["full", "window", "ring"])
+def test_paged_attention_plain_matches_jax_gemma3_heads(quant, mode, K):
+    """Gemma3-1B's head shapes: 4 query heads on ONE KV head of dim 256,
+    single queries (K=0) and 4-token verify windows: plain vs the JAX
+    oracle (2e-6) and the Pallas body (its own bands)."""
+    o_plain, o_pal = _run_both(quant, mode, 4, 1, 256, pallas=True, K=K)
+    assert np.max(np.abs(o_plain - o_pal)) <= PALLAS_TOL[quant]
+
+
 def test_paged_attention_window_of_one_is_single_query():
     """A 1-token window is the single-query call: same positions, same
     masks, same numbers."""
@@ -171,6 +182,23 @@ def test_flash_attention_plain_matches_jax(Sq, Sk, H, KV, window):
         ops.flash_attention(tq, tk, tv, causal=True, window=window).numpy(),
         o_plain)
     assert o_plain.shape == (B, Sq, H, D)
+    np.testing.assert_allclose(o_plain, o_ref, rtol=2e-6, atol=2e-6)
+    np.testing.assert_allclose(o_plain, o_pal, rtol=2e-6, atol=2e-6)
+
+
+@pytest.mark.parametrize("window", [0, 48])
+def test_flash_attention_plain_matches_jax_gemma3_heads(window):
+    """Gemma3-1B's head shapes (H=4, KV=1, D=256), Sq=Sk=128: plain vs
+    the JAX oracle and the Pallas body, 2e-6."""
+    S, H, KV, D = 128, 4, 1, 256
+    q, k, v = _rand(11, 1, S, H, D), _rand(12, 1, S, KV, D), _rand(13, 1, S, KV, D)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    o_ref = np.asarray(ref.flash_attention_ref(jq, jk, jv, causal=True,
+                                               window=window))
+    o_pal = np.asarray(flash_attention_pallas(jq, jk, jv, causal=True,
+                                              window=window, interpret=True))
+    o_plain = flash_attention_plain(*(torch.from_numpy(a) for a in (q, k, v)),
+                                    causal=True, window=window).numpy()
     np.testing.assert_allclose(o_plain, o_ref, rtol=2e-6, atol=2e-6)
     np.testing.assert_allclose(o_plain, o_pal, rtol=2e-6, atol=2e-6)
 
@@ -278,4 +306,5 @@ def test_new_cuda_wrappers_refuse_cpu_tensors():
                         torch.zeros((1, 1), dtype=torch.int32),
                         torch.full((1,), 2, dtype=torch.int32))
     assert ops.launch_counts() == {"paged_attention": 0, "paged_window": 0,
-                                   "quant_matmul": 0, "flash_attention": 0}
+                                   "quant_matmul": 0, "flash_attention": 0,
+                                   "quantize_rowwise": 0}

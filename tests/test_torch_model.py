@@ -344,3 +344,61 @@ def test_prefill_pallas_logits_match_jax(fixture, prec):
                 np.testing.assert_allclose(tl_[name].numpy(),
                                            np.asarray(jl_[name]),
                                            rtol=2e-5, atol=2e-6)
+
+
+@pytest.fixture(scope="module")
+def gemma3():
+    """Gemma3-1B scaled to 6 layers (5 local, 1 global), window 8, head
+    dim 32 against d_model / H = 16 (as 256 against 1152 / 4 at full
+    width), one KV head, tied embeddings and the sqrt(d_model) embedding
+    scale."""
+    from repro.configs import ARCHS as JAX_ARCHS
+    spec = JAX_ARCHS["gemma3-1b"].scaled_down(
+        layers=6, width=64, vocab=128).with_(sliding_window=8, head_dim=32)
+    assert spec.head_dim * spec.num_heads != spec.d_model
+    assert spec.num_kv_heads == 1 and spec.tie_embeddings
+    base = jlm.init(jax.random.PRNGKey(3), spec)
+    out = {}
+    for prec in ("fp32", "int4"):
+        jp = base if prec == "fp32" else jax_quantize_params(base, prec)
+        jp = jax.tree_util.tree_map(np.asarray, jp)
+        out[prec] = (jp, bridge.params_from_jax(jp, "cpu"))
+    return spec, out
+
+
+@pytest.mark.parametrize("cache_dtype", ["fp32", "int8", "int4"])
+@pytest.mark.parametrize("prec", ["fp32", "int4"])
+def test_gemma3_paged_steps_match_jax(gemma3, prec, cache_dtype):
+    """The Gemma3 family on flat tables: a 13-token cold admission (past
+    the 8-token window, so the local layers mask), three decode steps and
+    a K=3 verify window from the same states, both slots: logits within
+    the bands of this module."""
+    spec, params = gemma3
+    jp, tp = params[prec]
+    layout_j = jlm.PagedLayout(num_pages=NUM_PAGES, page_size=PAGE)
+    layout_t = tlm.PagedLayout(num_pages=NUM_PAGES, page_size=PAGE)
+    jc = jlm.init_paged_cache(spec, SLOTS, MAX_SEQ, layout_j, cache_dtype)
+    tc = tlm.init_paged_cache(spec, SLOTS, MAX_SEQ, layout_t, cache_dtype,
+                              device="cpu")
+    atol = ATOL[cache_dtype]
+    for slot, (seed, n, pages) in enumerate([(9, 13, [3, 5]), (10, 16, [2, 4])]):
+        p = _prompt(seed, n)
+        jl, jc = _jax_admit(spec, jp, jc, slot, p, pages)
+        tl, tc = _torch_admit(spec, tp, tc, slot, p, pages)
+        assert_close_logits(tl.numpy(), np.asarray(jl), context=f"admit {slot}")
+    jc["block_tables"] = jc["block_tables"].at[:, 2].set(jnp.asarray([7, 8]))
+    tc["block_tables"][:, 2] = torch.tensor([7, 8])
+    tok = np.asarray([[11], [12]], np.int32)
+    for step in range(3):
+        jl, jc = jlm.decode_step_paged(jp, spec, jc, jnp.asarray(tok))
+        tl, tc = tlm.decode_step_paged(tp, spec, tc, torch.from_numpy(tok))
+        assert_close_logits(tl.numpy(), np.asarray(jl), atol=atol,
+                            context=f"decode step {step}")
+        tok = np.asarray(jnp.argmax(jl[:, 0], -1), np.int32)[:, None]
+    window = np.concatenate([tok, np.asarray([[3, 9], [120, 0]], np.int32)], 1)
+    lens = np.asarray([3, 2], np.int32)
+    jl, _ = jlm.decode_window_paged(jp, spec, jc, jnp.asarray(window),
+                                    jnp.asarray(lens))
+    tl, _ = tlm.decode_window_paged(tp, spec, tc, torch.from_numpy(window),
+                                    torch.from_numpy(lens))
+    assert_close_logits(tl.numpy(), np.asarray(jl), atol=atol, context="window")

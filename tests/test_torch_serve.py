@@ -25,6 +25,8 @@ from repro.serve import scheduler as jsched
 from repro.serve.backend import SingleDeviceBackend as JaxBackend
 from repro_torch import bridge
 from repro_torch.configs import ARCHS
+from repro_torch.models import lm as tlm
+from repro_torch.serve import paged_cache as tpc
 from repro_torch.serve import scheduler as tsched
 from repro_torch.serve.backend import SingleDeviceBackend
 from tolerance import assert_close_tokens
@@ -148,10 +150,14 @@ def test_swap_round_trip_byte_identical(fixture, cache_dtype):
 
 
 def test_spec_k_and_ring_stacks_refused(fixture):
-    """spec_k > 1 is served now (the verify window; its parity tests are
-    in ``test_torch_serve_spec.py``), but not on ring stacks, and a
-    multi-token window without ``lens`` is refused; ring block tables
-    are still refused."""
+    """A multi-token window without ``lens`` is refused (spec_k > 1 is
+    served: its parity tests are in ``test_torch_serve_spec.py``).  Ring
+    block tables are served now, and gated as ``ring_window`` gates them
+    in the JAX package (``test_serve_scheduler.py::test_windowed_kv_gating``):
+    ``windowed_kv=True`` refuses any stack with a global-attention layer
+    or none with a window, ``None`` puts a uniformly sliding stack on a
+    ring and quietly leaves a mixed one flat, ``False`` forces the flat
+    mask-only layout."""
     spec, params = fixture
     _, tp = params["fp32"]
     cfg = tsched.SchedulerConfig(max_slots=2, page_size=8, max_seq=32,
@@ -159,18 +165,50 @@ def test_spec_k_and_ring_stacks_refused(fixture):
     be = SingleDeviceBackend(tp, spec, cfg, device="cpu")
     with pytest.raises(ValueError, match="lens"):
         be.decode(np.zeros((2, 2), np.int32), np.ones(2, np.int32))
-    local = ARCHS["gemma3-1b"].scaled_down(layers=2, width=64, vocab=128)
-    assert set(local.layer_kinds()) == {"attn_local"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SingleDeviceBackend({}, local, cfg, device="cpu")
-    cfg = tsched.SchedulerConfig(max_slots=2, page_size=8, max_seq=32,
-                                 num_pages=10)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SingleDeviceBackend({}, local, cfg, device="cpu")
-    be = SingleDeviceBackend(tp, spec, cfg, device="cpu")
     out, n_emit, ok = be.decode(np.zeros((2, 2), np.int32),
                                 np.ones(2, np.int32), np.ones(2, np.int32))
     assert out.shape == (2, 2)
     np.testing.assert_array_equal(n_emit, [1, 1])
     np.testing.assert_array_equal(ok, [1, 1])
     torch.testing.assert_close(be.cache["pos"], torch.ones(2, dtype=torch.int32))
+
+    def backend(s, wkv, p=None, **kw):
+        c = tsched.SchedulerConfig(max_slots=2, page_size=8, max_seq=32,
+                                   num_pages=16, windowed_kv=wkv, **kw)
+        return SingleDeviceBackend(tp if p is None else p, s, c, device="cpu")
+
+    # granite: full attention everywhere -> refused by the scheduler and
+    # the backend alike; auto-detect stays flat
+    for make in (lambda: backend(spec, True),
+                 lambda: tsched.ContinuousBatchingEngine(
+                     tp, spec, tsched.SchedulerConfig(
+                         max_slots=2, page_size=8, max_seq=32, num_pages=16,
+                         windowed_kv=True))):
+        with pytest.raises(ValueError, match="windowed_kv"):
+            make()
+    be = backend(spec, None)
+    assert not be.ring and be.window == 0
+    # gemma3 at 6 layers has one global layer: no ring, True refused
+    mixed = ARCHS["gemma3-1b"].scaled_down(layers=6, width=64, vocab=128
+                                           ).with_(sliding_window=8)
+    assert "attn_global" in mixed.layer_kinds()
+    assert tpc.ring_window(mixed, None) == 0
+    with pytest.raises(ValueError, match="windowed_kv"):
+        tpc.ring_window(mixed, True)
+    # gemma3 at 2 layers is uniformly local: ring of ring_pages entries
+    local = ARCHS["gemma3-1b"].scaled_down(layers=2, width=64, vocab=128
+                                           ).with_(sliding_window=8)
+    assert set(local.layer_kinds()) == {"attn_local"}
+    lp = tlm.init(0, local, device="cpu")
+    for spec_k in (1, 3):
+        be = backend(local, None, lp, spec_k=spec_k)
+        assert be.ring and be.window == 8
+        assert be.cache["block_tables"].shape[1] == tpc.ring_pages(8, 8, spec_k)
+    be = backend(local, False, lp)
+    assert not be.ring and be.cache["block_tables"].shape[1] == 4
+    assert backend(local, True, lp).ring
+    # no window at all: None stays flat, True is refused
+    nowin = local.with_(sliding_window=0)
+    assert tpc.ring_window(nowin, None) == 0
+    with pytest.raises(ValueError, match="windowed_kv"):
+        tpc.ring_window(nowin, True)
