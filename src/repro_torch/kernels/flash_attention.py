@@ -10,7 +10,8 @@ kernel; the plain version takes one (``softcap``) so that it also
 serves as the model's plain attention, ``models.layers.sdpa``.
 
 The kernel replaces ``repro/kernels/flash_attention.py:_flash_kernel``
-and takes any Sq and Sk (the TPU kernel needs multiples of 128); the
+and takes any Sq and Sk (the TPU kernel needs multiples of 128) at the
+models' head dims 64, 128 and 256; the
 plain version is ``repro/kernels/ref.py:flash_attention_ref`` but for
 fully masked rows, where the reference's softmax averages every value
 row and this version returns zeros, as the kernels do.
@@ -26,7 +27,9 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 
-#: Launches of the CUDA kernel (one per call that reaches it).
+#: Launches of the CUDA kernel (one per call that reaches it, though a
+#: call whose long query tiles have their keys cut into chunks launches
+#: the kernel and its merge pass).
 LAUNCHES = 0
 
 
@@ -69,14 +72,17 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _lib():
-    fn = _build.load("flash_attention").flash_attention_fwd
+    lib = _build.load("flash_attention")
+    fn, chunks = lib.flash_attention_fwd, lib.flash_attention_chunks
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p,                       # q k v out
-                       i, i, i, i, i, i, i, i,           # B Sq Sk H KV D causal window
+        fn.argtypes = [p, p, p, p, p, p,                 # q k v out part_o part_ml
+                       i, i, i, i, i, i, i, i, i,        # B Sq Sk H KV D causal window chunks
                        ctypes.c_float, p]                # scale, stream
         fn.restype = ctypes.c_int
-    return fn
+        chunks.argtypes = [i] * 5                        # Sq Sk D causal window
+        chunks.restype = ctypes.c_int
+    return fn, chunks
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -100,15 +106,26 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _, Sk, KV, Dk = k.shape
     _check(k.shape[0] == B and Dk == D and H % KV == 0,
            f"q {tuple(q.shape)} vs k/v {tuple(k.shape)}")
+    _check(D in (64, 128, 256), f"head dim {D} (the kernel takes 64, 128, 256)")
     # the projections arrive as views of (B, S, H*D) rows: make them dense
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     sc = scale if scale is not None else 1.0 / (D ** 0.5)
     out = torch.empty_like(q)
-    err = _lib()(
-        ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
-        ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        B, Sq, Sk, H, KV, D, int(bool(causal)), int(window), float(sc),
-        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
+    fwd, chunks = _lib()
+    # the most key chunks a query tile is cut into; each chunk's (o, m, l)
+    # per query row goes to scratch for the merge pass
+    n_chunks = chunks(Sq, Sk, D, int(bool(causal)), int(window))
+    part_o = part_ml = None
+    if n_chunks > 1:
+        part_o = torch.empty((B, H, Sq, n_chunks, D), dtype=torch.float32,
+                             device=q.device)
+        part_ml = torch.empty((B, H, Sq, n_chunks, 2), dtype=torch.float32,
+                              device=q.device)
+    ptr = [ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+           for t in (q, k, v, out, part_o, part_ml)]
+    err = fwd(*ptr, B, Sq, Sk, H, KV, D, int(bool(causal)), int(window),
+              n_chunks, float(sc),
+              ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     _build.check(err, "flash_attention_fwd launch")
     LAUNCHES += 1
     return out

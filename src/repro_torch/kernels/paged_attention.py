@@ -22,14 +22,22 @@ entries masked).
 
 The kernel replaces ``repro/kernels/paged_attention.py:_paged_kernel``
 (q (B, H, D), launched as a window of K = 1) and ``_paged_window_kernel``
-(q (B, K, H, D)); the two wrappers count their launches apart.  The plain
-version is the gather oracle of ``repro/kernels/ref.py``
-(``paged_attention_ref`` and ``paged_attention_window_ref``).
+(q (B, K, H, D)); the two wrappers count their launches apart (one per
+call, though a call with more than one split launches the kernel and its
+merge pass).  The plain version is the gather oracle of
+``repro/kernels/ref.py`` (``paged_attention_ref`` and
+``paged_attention_window_ref``).
+
+The kernel splits each slot's block-table walk into runs of
+``split_pages(page, D)`` entries, one grid block each, and merges a slot's
+splits in ascending order.  The partition (``split_plan``) depends on a
+slot's own length and table alone, never on the other slots of the
+batch, so a slot's output is bitwise the same alone and in any batch.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -57,6 +65,54 @@ def _pool_quant(k_pages: torch.Tensor, k_scale: Optional[torch.Tensor]):
         raise ValueError(f"int4 pages {tuple(k_pages.shape)} do not pack "
                          f"scale token dim {page}")
     return "int4", page
+
+
+def split_pages(page: int, D: int) -> int:
+    """Block-table entries per split of the kernel's grid: 16 tokens of
+    the pool at head dims up to 64, 32 above (at least one page).  A
+    function of the page size and head dim alone, so that no slot's
+    partition follows the batch."""
+    return max(1, (16 if D <= 64 else 32) // page)
+
+
+def n_splits(n_entries: int, page: int, D: int) -> int:
+    """Splits in the kernel's grid for tables of ``n_entries`` entries."""
+    return -(-n_entries // split_pages(page, D))
+
+
+def split_plan(lengths: Sequence[int], n_entries: int, page: int, D: int,
+               *, K: int = 1, window: int = 0, ring: bool = False
+               ) -> List[List[Tuple[int, List[int]]]]:
+    """The kernel's partition of each slot's walk, as (split index, the
+    block-table entries that split visits) per slot, in the order the
+    merge pass takes them.  It mirrors ``slot_walk`` and ``next_entry`` of
+    ``csrc/paged_attention.cu``: only the entries holding a key some of
+    the slot's K queries may see, in runs of ``split_pages(page, D)``
+    entries counted from entry 0."""
+    pps = split_pages(page, D)
+    plans = []
+    for length in lengths:
+        length = int(length)
+        last = (length - 1) // page if length > 0 else 0
+        lo_valid = length - K - window + 1 if window > 0 else 0
+        if length <= 0:
+            e_begin = e_end = 0
+        elif ring:
+            e_begin, e_end = 0, n_entries
+        else:
+            e_begin = max(lo_valid, 0) // page
+            e_end = min(last, n_entries - 1) + 1
+        plan = []
+        for s in range(e_begin // pps, -(-e_end // pps)):
+            entries = []
+            for e in range(max(s * pps, e_begin), min((s + 1) * pps, e_end)):
+                ap = last - ((last - e) % n_entries) if ring else e
+                t0 = ap * page
+                if ap >= 0 and t0 <= length - 1 and t0 + page - 1 >= lo_valid:
+                    entries.append(e)
+            plan.append((s, entries))
+        plans.append(plan)
+    return plans
 
 
 def _ring_positions(lengths: torch.Tensor, n_entries: int,
@@ -126,10 +182,14 @@ def _lib():
     fn = _build.load("paged_attention").paged_attention
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        # 8 tensors; B H KV D page n quant K window ring; scale; stream
-        fn.argtypes = [p] * 8 + [i] * 10 + [ctypes.c_float, p]
+        # 10 tensors; B H KV D page n quant K window ring pps; scale; stream
+        fn.argtypes = [p] * 10 + [i] * 11 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -159,6 +219,11 @@ def _launch(q, k_pages, v_pages, block_tables, lengths, window, ring, scale,
     _check(tuple(v_pages.shape) == tuple(k_pages.shape), "k/v pool shapes differ")
     _check(Dk == D and H % KV == 0, f"q {tuple(q.shape)} vs pools "
            f"{tuple(k_pages.shape)}")
+    # 16-byte copies of page rows; one register slice per lane of D
+    _check(D % 16 == 0 and D <= 256,
+           f"head dim {D} (the kernel takes multiples of 16 up to 256)")
+    _check(quant == "none" or page % 4 == 0,
+           f"quantized pages of {page} tokens (want a multiple of 4)")
     if quant != "none":
         for s in (k_scale, v_scale):
             _check(s.dtype == torch.float32 and tuple(s.shape) == (P, KV, page),
@@ -171,15 +236,23 @@ def _launch(q, k_pages, v_pages, block_tables, lengths, window, ring, scale,
     sc = scale if scale is not None else 1.0 / (D ** 0.5)
     out = torch.empty_like(q)
     null = ctypes.c_void_p(0)
+    n_entries = block_tables.shape[1]
+    S = n_splits(n_entries, page, D)
+    # the merge pass stages each split's (m, l) in 48 KB of shared memory
+    _check(S <= 6144, f"{n_entries} table entries ({S} splits, at most 6144)")
+    if S > 1:   # each split's (acc, m, l) per query row, for the merge pass
+        part_acc = torch.empty((B, KV, S, K * (H // KV), D),
+                               dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((B, KV, S, K * (H // KV), 2),
+                              dtype=torch.float32, device=q.device)
     err = _lib()(
-        ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k_pages.data_ptr()),
-        ctypes.c_void_p(v_pages.data_ptr()),
-        ctypes.c_void_p(k_scale.data_ptr()) if quant != "none" else null,
-        ctypes.c_void_p(v_scale.data_ptr()) if quant != "none" else null,
-        ctypes.c_void_p(block_tables.data_ptr()),
-        ctypes.c_void_p(lengths.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        B, H, KV, D, page, block_tables.shape[1], _QUANT_CODES[quant], K,
-        int(window), int(bool(ring)), float(sc),
+        _ptr(q), _ptr(k_pages), _ptr(v_pages),
+        _ptr(k_scale) if quant != "none" else null,
+        _ptr(v_scale) if quant != "none" else null,
+        _ptr(block_tables), _ptr(lengths), _ptr(out),
+        _ptr(part_acc) if S > 1 else null, _ptr(part_ml) if S > 1 else null,
+        B, H, KV, D, page, n_entries, _QUANT_CODES[quant], K,
+        int(window), int(bool(ring)), split_pages(page, D), float(sc),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     _build.check(err, "paged_attention launch")
     return out

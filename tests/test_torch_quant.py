@@ -121,3 +121,54 @@ def test_stacked_dequantize_matches_per_layer():
     out = tq.dequantize(stacked)
     for i, t in enumerate(ts):
         torch.testing.assert_close(out[i], tq.dequantize(t), rtol=0, atol=0)
+
+
+def _reciprocal_breakers(d: float, n: int) -> np.ndarray:
+    """``n`` float32 values x for which x * fl(1/d) is not the true
+    quotient fl(x / d): what a CUDA tensor's division by a Python number
+    computes, and where it would move a scale by one ulp."""
+    rng = np.random.default_rng(int(d))
+    x = rng.uniform(1e-3, 8.0, size=200_000).astype(np.float32)
+    d32 = np.float32(d)
+    bad = x[(x / d32) != x * (np.float32(1.0) / d32)]
+    assert len(bad) >= n
+    return bad[:n]
+
+
+# (config or KV quantizer, the divisor of its scale)
+_DIVISIONS = [("W8_SYM_CHANNEL", 127), ("W4_SYM_GROUP", 7),
+              ("A8_ASYM_CHANNEL", 255), ("A4_ASYM_GROUP", 15),
+              ("kv_int8", 127), ("kv_int4", 7)]
+
+
+@pytest.mark.parametrize("name,d", _DIVISIONS)
+def test_scales_are_true_division(name, d):
+    """At amax (or hi - lo) values where a multiply by the reciprocal
+    differs from float32 division, every scale is numpy's true quotient,
+    bit for bit, and the JAX package's.  On the CPU, where torch divides
+    truly; a CUDA tensor divided by a Python number takes the reciprocal
+    path (ROADMAP queue 3), which ``chip_smoke.py`` counts on the card."""
+    amax = _reciprocal_breakers(d, 32)
+    if name.startswith("kv_"):
+        x = np.zeros((32, 2, 16), np.float32)
+        x[:, 0, 3] = amax
+        x[:, 1, 5] = -amax
+        tsc = getattr(tq, f"quantize_kv_{name[3:]}")(torch.from_numpy(x))[1]
+        jsc = getattr(jq, f"quantize_kv_{name[3:]}")(jnp.asarray(x))[1]
+        want = np.repeat((amax / np.float32(d))[:, None], 2, axis=1)[..., None]
+    else:
+        bits = 8 if "8" in name.split("_")[0] else 4
+        sym = name.split("_")[1] == "SYM"
+        gran = name.split("_")[2].lower()
+        cfgs = [m.QuantConfig(bits=bits, symmetric=sym, granularity=gran,
+                              group_size=32) for m in (tqt, jqt)]
+        # one channel per value: the channel's amax (and, for the
+        # asymmetric case, hi - lo with lo = 0) is that value
+        x = np.zeros((32, 32), np.float32)
+        x[0] = amax
+        x[1] = amax / 3
+        tsc = tq.compute_scale_zero(torch.from_numpy(x), cfgs[0])[0]
+        jsc = jq.compute_scale_zero(jnp.asarray(x), cfgs[1])[0]
+        want = (amax / np.float32(d)).reshape(np.asarray(jsc).shape)
+    np.testing.assert_array_equal(_bits(tsc.numpy()), _bits(want))
+    np.testing.assert_array_equal(_bits(jsc), _bits(want))
